@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / H100 port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. env — the card (``nvidia-smi`` name and power limit, compute capability
+   9.0) and the build of the CUDA kernels from ``src/repro_torch/csrc``;
+2. kernels — ``limb_matmul`` (K1) and ``mont_fold`` (K2) against their plain
+   PyTorch versions on the card, bit for bit, at every main-path shape and
+   at edge cases; then their times at the main-path shapes (CUDA events
+   around runs of back-to-back calls, median of 50 runs; and the kernel's
+   own device time from torch.profiler) beside the plain version, the bound
+   and, for K1, one library call;
+3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
+   int32, κ = 2) and a per-plane staged transform against an int64 numpy
+   oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
+4. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
+   trace (λ = 4096 req/s for 0.25 s, 50:50 Dilithium:BN254, n_c = 8) and of
+   the mixed eager/lazy configuration, every tenant row checked (Dilithium
+   against the int64 oracle, BN254 against the CPU replay) and every kernel
+   launch counted against the engines' fold profiles; then two more runs
+   of the paper trace that split its wall time (host timers around the
+   kernel wrappers and ``rns_to_field``; torch.profiler for device time).
+
+Every comparison is exact (tolerance 0).  Any failure raises, so the exit
+code is not 0 and the last line is missing.  The last two lines are the
+kernel table (``{"kernels": [...]}``) and ``{"ok": true, "device": ...}``.
+Nothing of JAX or of the JAX package ``repro`` is imported.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import field as F                          # noqa: E402
+from repro_torch.core import limb_gemm as G                      # noqa: E402
+from repro_torch.core import ntt as NTT                          # noqa: E402
+from repro_torch.core import rns as R                            # noqa: E402
+from repro_torch.core import workloads as WK                     # noqa: E402
+from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E402
+from repro_torch.kernels import build                            # noqa: E402
+from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1, limb_matmul_cuda  # noqa: E402
+from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref  # noqa: E402
+from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  # noqa: E402
+from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
+from repro_torch.launch.serve import serve_crypto                # noqa: E402
+
+Q = F.DILITHIUM_Q
+SEED = 0
+# Device rates of the published data sheets (dense, no sparsity): device
+# memory bandwidth per card name, int8 tensor-core operations, and the
+# non-tensor-core float32 rate as the rate of the CUDA cores' integer work.
+BANDWIDTH = {"H200": 4.8e12, "H100": 3.35e12}
+INT8_OPS = 1.979e15
+CUDA_CORE_OPS = 67e12
+# Integer operations of the Horner fold per diagonal: 8 doublings of
+# (shift, compare, subtract) and the remainder, sign fix, add, compare and
+# subtract.
+FOLD_OPS_PER_DIAG = 8 * 3 + 6
+
+# K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
+# (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
+# (La = 4, seven diagonals), a 128-row ladder launch, a ragged small case,
+# int32-only shapes past the fp32 window and past the shared-memory K chunk.
+K1_SHAPES = [(8, 192, 320), (8, 384, 640), (8, 513, 1280), (8, 255, 1280),
+             (8, 513, 2560), (8, 510, 2560), (8, 256, 448), (128, 513, 1280),
+             (128, 256, 128), (3, 100, 70)]
+K1_INT32_ONLY = [(8, 1536, 2560), (5, 4100, 96)]
+K1_TIMED = [(8, 513, 1280), (8, 513, 2560), (8, 256, 448)]
+K2_TIMED = [(8, 256, 5, Q), (8, 512, 5, Q), (8, 64, 7, R.make_chain(9).base[0])]
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def bandwidth(name: str) -> float:
+    for key, bw in BANDWIDTH.items():
+        if key in name:
+            return bw
+    raise AssertionError(f"no bandwidth figure for card {name!r}")
+
+
+def median_ms(fn, dev, runs=50, per_run=20, warmup=10) -> float:
+    """Time of one call of ``fn``: CUDA events around ``per_run``
+    back-to-back calls, divided by ``per_run``; the median of ``runs`` such
+    runs, after a warm-up.  Host enqueue time is part of it when a call is
+    shorter than its launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_run):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_run)
+    return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, dev, n=50) -> float | None:
+    """Mean device time of one launch of ``kernel`` (torch.profiler), or
+    None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.count:
+            return ev.self_device_time_total / ev.count / 1e3 or None
+    return None
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+# --- phases -------------------------------------------------------------------
+
+
+def phase_env(dev):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    cap = torch.cuda.get_device_capability(dev)
+    check(cap == (9, 0), f"compute capability {cap}, the kernels are sm_90a")
+    t0 = time.perf_counter()
+    build.load()
+    env = {"phase": "env", "nvidia_smi": smi[0],
+           "device": torch.cuda.get_device_name(dev), "capability": list(cap),
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "build_s": time.perf_counter() - t0,
+           "library": build.library_path().name}
+    emit(env)
+    return env
+
+
+def phase_kernels(dev, card: str):
+    rng = np.random.default_rng(SEED)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"limb_matmul": 0, "mont_fold": 0}
+    n_checked = {"limb_matmul": 0, "mont_fold": 0}
+
+    def k1_inputs(n, k, m):
+        a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
+        b = torch.as_tensor(rng.integers(-128, 128, (k, m)).astype(np.int8), device=dev)
+        return a, b
+
+    def k1_check(a, b, accum, what):
+        got = limb_matmul_cuda(a, b, accum)
+        want = limb_matmul_ref(a, b, accum)
+        err = max_abs_err(got, want)
+        check(err == 0, f"limb_matmul {accum} {what}: max |err| {err}")
+        worst["limb_matmul"] = max(worst["limb_matmul"], err)
+        n_checked["limb_matmul"] += 1
+
+    for n, k, m in K1_SHAPES:
+        a, b = k1_inputs(n, k, m)
+        for accum in ("fp32_mantissa", "int32_native"):
+            k1_check(a, b, accum, (n, k, m))
+    for n, k, m in K1_INT32_ONLY:
+        a, b = k1_inputs(n, k, m)
+        k1_check(a, b, "int32_native", (n, k, m))
+    # the extreme pass: every product 255·(-128), the sum at the fp32 edge
+    a = torch.full((8, 513), 255, dtype=torch.uint8, device=dev)
+    b = torch.full((513, 1280), -128, dtype=torch.int8, device=dev)
+    for accum in ("fp32_mantissa", "int32_native"):
+        k1_check(a, b, accum, "extreme (8, 513, 1280)")
+
+    def k2_check(diags, m, what):
+        got = mont_fold_cuda(diags, m)
+        want = mont_fold_ref(diags, m)
+        err = max_abs_err(got, want)
+        check(err == 0, f"mont_fold {what} m={m}: max |err| {err}")
+        worst["mont_fold"] = max(worst["mont_fold"], err)
+        n_checked["mont_fold"] += 1
+
+    def diags_in(lo, hi, shape):
+        return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
+                               device=dev)
+
+    i32 = 2**31 - 1
+    for n, d, nd, m in [(8, 256, 7, 2013265921), (5, 300, 5, Q),
+                        (16, 64, 7, (1 << 31) - 99)]:
+        k2_check(diags_in(-(2**24), 2**24, (n, d, nd)), m, "sweep")
+    for m in R.make_chain(9).moduli:
+        k2_check(diags_in(-(2**24), 2**24, (8, 64, 7)), m, "bn254 channel")
+    for m in (Q, (1 << 31) - 99):
+        k2_check(diags_in(-i32, i32 + 1, (8, 256, 5)), m, "kappa-summed")
+        k2_check(diags_in(-i32, 0, (8, 256, 5)), m, "all negative")
+        edge = torch.tensor([[-i32, i32, -i32 - 1, 0, -1]] * 64,
+                            dtype=torch.int32, device=dev)
+        k2_check(edge, m, "int32 edges")
+    for n, d, nd, m in K2_TIMED:
+        k2_check(diags_in(-(2**24), 2**24, (n, d, nd)), m, "main path")
+
+    bw = bandwidth(card)
+    k1_times = []
+    for n, k, m in K1_TIMED:
+        a, b = k1_inputs(n, k, m)
+        a_f, b_f = a.float(), b.float()
+        nbytes = n * k + k * m + 4 * n * m
+        ops = 2 * n * k * m
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / INT8_OPS * 1e3
+        k1_times.append({
+            "shape": [n, k, m], "accum": "fp32_mantissa",
+            "kernel_ms": median_ms(lambda: limb_matmul_cuda(a, b, "fp32_mantissa"), dev),
+            "kernel_device_ms": device_ms(
+                lambda: limb_matmul_cuda(a, b, "fp32_mantissa"),
+                "limb_matmul_kernel", dev),
+            "plain_ms": median_ms(lambda: limb_matmul_ref(a, b, "fp32_mantissa"), dev),
+            "library_ms": median_ms(lambda: torch.matmul(a_f, b_f), dev),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    k2_times = []
+    for n, d, nd, m in K2_TIMED:
+        diags = diags_in(-(2**24), 2**24, (n, d, nd))
+        nbytes = 4 * n * d * nd + 4 * n * d
+        ops = n * d * nd * FOLD_OPS_PER_DIAG
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / CUDA_CORE_OPS * 1e3
+        k2_times.append({
+            "shape": [n, d, nd], "modulus": m,
+            "kernel_ms": median_ms(lambda: mont_fold_cuda(diags, m), dev),
+            "kernel_device_ms": device_ms(lambda: mont_fold_cuda(diags, m),
+                                          "mont_fold_kernel", dev),
+            "plain_ms": median_ms(lambda: mont_fold_ref(diags, m), dev),
+            "library_ms": None,   # no single torch call computes the fold
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    out = {"phase": "kernels", "checked": n_checked, "max_abs_err": worst,
+           "limb_matmul": k1_times, "mont_fold": k2_times}
+    emit(out)
+    return out
+
+
+def _oracle_int64(a: np.ndarray, d: int) -> np.ndarray:
+    """(a @ W) mod Q in int64: exact, since d·Q² < 2**63 for d <= 512."""
+    w = NTT.ntt_matrix(d, Q, negacyclic=(Q - 1) % (2 * d) == 0).astype(np.int64)
+    return ((a.astype(np.int64) @ w) % Q).astype(np.uint32)
+
+
+def phase_engines(dev):
+    rng = np.random.default_rng(SEED + 1)
+    rows = 0
+    for d in (64, 128, 256, 512):
+        a = rng.integers(0, Q, (8, d), dtype=np.uint64).astype(np.uint32)
+        want = _oracle_int64(a, d)
+        for kw in (dict(accum="fp32_mantissa"),
+                   dict(accum="int32_native", reduction="lazy", kappa=2,
+                        d_tile=171)):
+            eng = WK.DilithiumEngine(d, device=dev, **kw)
+            got = eng.e2e(a).cpu().numpy().astype(np.uint32)
+            check(np.array_equal(got, want), f"DilithiumEngine d={d} {kw}")
+            rows += len(a)
+    # per-plane mode (no fused operand: one K1 launch per limb pair), which
+    # only degrees above 2048 reach in the engines
+    a = rng.integers(0, Q, (8, 256), dtype=np.uint64).astype(np.uint32)
+    planar = G.make_channel_plan(
+        NTT.ntt_matrix(256, Q, negacyclic=True), Q, data_limbs=3, tw_limbs=3,
+        accum="int32_native", fuse_below=0)
+    y, _ = G.staged_transform(torch.as_tensor(a.astype(np.int64), device=dev),
+                              planar, d_max=171)
+    check(np.array_equal(y.cpu().numpy().astype(np.uint32),
+                         _oracle_int64(a, 256)), "per-plane staged transform")
+    gpu, cpu = WK.BN254Engine(64, device=dev), WK.BN254Engine(64, device="cpu")
+    vals = np.array([[int(x) for x in row] for row in
+                     rng.integers(0, 2**31, (8, 64))], object)
+    got = gpu.e2e(gpu.ingest(vals)).cpu()
+    want = cpu.e2e(cpu.ingest(vals))
+    check(torch.equal(got, want), "BN254Engine d=64 cuda vs cpu")
+    out = {"phase": "engines", "dilithium_rows": rows, "per_plane_rows": len(a),
+           "bn254_rows": len(vals),
+           "exact": True}
+    emit(out)
+    return out
+
+
+def _replay(cos, **kw):
+    return serve_crypto(duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED,
+                        validate=True, coscheduler=cos, **kw)
+
+
+def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
+    """One replay on the card with the kernel counters at 0, checked row by
+    row and launch by launch; returns the counts and times."""
+    cos = SliceCoScheduler(device=dev, **cos_kw)
+    K1.reset()
+    K2.reset()
+    results, n_ops, wall = _replay(cos, d_uniform=d_uniform)
+    torch.cuda.synchronize(dev)
+    launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
+    want_k1 = sum(r.stats["n_passes"] * r.stats["n_channels"] for r in results)
+    want_k2 = sum(r.stats["n_folds"] for r in results)
+    check(launches == {"limb_matmul": want_k1, "mont_fold": want_k2}
+          and want_k1 > 0 and want_k2 > 0,
+          f"{label}: launches {launches} != fold-profile totals "
+          f"({want_k1}, {want_k2})")
+
+    cpu_results, _, _ = _replay(SliceCoScheduler(device="cpu", **cos_kw),
+                                d_uniform=d_uniform)
+    cpu_rows = {}
+    for r in cpu_results:
+        cpu_rows.update(r.outputs)
+    per_workload, oracle = {}, {}
+    for r in results:
+        w, d = r.batch.workload, r.batch.d_bucket
+        per_workload[w] = per_workload.get(w, 0) + r.batch.n_c
+        if w == "dilithium":
+            a = np.zeros((r.batch.n_c, d), np.uint32)
+            for i, req in enumerate(r.batch.requests):
+                a[i, :req.degree] = req.coeffs
+            if d not in oracle:
+                oracle[d] = NTT.ntt_matrix(
+                    d, Q, negacyclic=(Q - 1) % (2 * d) == 0).astype(np.int64)
+            want = ((a.astype(np.int64) @ oracle[d]) % Q).astype(np.uint32)
+            check(np.array_equal(np.asarray(r.rows), want),
+                  f"{label}: dilithium d={d} rows differ from the oracle")
+        for tid, row in r.outputs.items():
+            check(np.array_equal(row, cpu_rows[tid]),
+                  f"{label}: tenant {tid} differs from the CPU replay")
+    check(set(per_workload) == {"dilithium", "bn254"},
+          f"{label}: trace did not reach both workloads")
+    out = {"phase": "slice", "label": label, "requests": n_ops,
+           "per_workload": per_workload, "wall_s": wall,
+           "ops_per_s": n_ops / wall, "dispatches": len(results),
+           "launches": launches,
+           "launches_per_dispatch": {k: v / len(results)
+                                     for k, v in launches.items()},
+           "rows_checked": len(cpu_rows)}
+    emit(out)
+    return out
+
+
+def _kernel_events(prof):
+    """The profiler's device-side kernel (and copy) averages.  The
+    record_function range around rns_to_field also shows on the device as
+    an annotation spanning its kernels; it is not a kernel and is skipped."""
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)
+                and ev.key != "rns_to_field"):
+            yield ev
+
+
+@contextlib.contextmanager
+def _host_timers(spent: dict):
+    """Add the host seconds spent inside each kernel wrapper and inside
+    ``rns_to_field`` (``BN254Engine.reduce``) to ``spent``, by wrapping the
+    names the engines call; everything is restored on exit.  Launches are
+    asynchronous, so this is the time to enqueue the work (and to wait when
+    the launch queue is full)."""
+    from repro_torch.core import montgomery as MG
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+
+    saved = [(G, "limb_matmul"), (G, "mont_fold"), (MG, "mont_fold"),
+             (WK.BN254Engine, "reduce")]
+    originals = [getattr(obj, name) for obj, name in saved]
+    G.limb_matmul = timed(G.limb_matmul, "limb_matmul")
+    G.mont_fold = timed(G.mont_fold, "mont_fold")
+    MG.mont_fold = timed(MG.mont_fold, "mont_fold")
+    WK.BN254Engine.reduce = timed(WK.BN254Engine.reduce, "rns_to_field")
+    try:
+        yield spent
+    finally:
+        for (obj, name), fn in zip(saved, originals):
+            setattr(obj, name, fn)
+
+
+def phase_profile(dev):
+    """Where the paper trace's wall time goes.  After a warm-up replay (which
+    builds engines and uploads planes), one replay with host timers around
+    the kernel wrappers and ``rns_to_field`` splits the wall time on the
+    host; one more under torch.profiler gives the device time of every
+    kernel.  The device idle share sets the profiled busy time against the
+    unprofiled wall time (the profiler slows the host, not the kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    cos = SliceCoScheduler(device=dev)
+    _replay(cos)
+    torch.cuda.synchronize(dev)
+    spent = {"limb_matmul": 0.0, "mont_fold": 0.0, "rns_to_field": 0.0}
+    with _host_timers(spent):
+        t0 = time.perf_counter()
+        results, _, _ = _replay(cos)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _replay(cos)
+        torch.cuda.synchronize(dev)
+        wall_profiled = time.perf_counter() - t0
+    device = {"limb_matmul": 0.0, "mont_fold": 0.0}
+    busy_us, n_kernels, top = 0.0, 0, []
+    for ev in _kernel_events(prof):
+        busy_us += ev.self_device_time_total
+        n_kernels += ev.count
+        top.append((ev.self_device_time_total / 1e6, ev.count, ev.key[:80]))
+        for name in device:
+            if f"{name}_kernel" in ev.key:
+                device[name] += ev.self_device_time_total / 1e6
+    top.sort(reverse=True)
+    n_bn = sum(r.batch.workload == "bn254" for r in results)
+    out = {"phase": "profile", "label": "paper", "wall_s": wall,
+           "dispatches": len(results), "bn254_dispatches": n_bn,
+           "host_s": spent,
+           "host_share": {k: v / wall for k, v in spent.items()},
+           "other_host_s": wall - sum(spent.values()),
+           "device_s": device if busy_us else None,
+           "device_busy_s": busy_us / 1e6 if busy_us else None,
+           "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
+           "device_kernels": n_kernels, "wall_profiled_s": wall_profiled,
+           "top_device": [{"s": t, "count": c, "kernel": k}
+                          for t, c, k in top[:8]],
+           "rns_to_field_graph": _rns_to_field_graph(cos, dev)}
+    emit(out)
+    return out
+
+
+def _rns_to_field_graph(cos, dev) -> dict:
+    """Device time of one ``rns_to_field`` (BN254 d=64, 8 rows) with the
+    host out of the way: the call captured once as a CUDA graph and
+    replayed, beside the same call launched op by op."""
+    eng = cos.engine_for("bn254", 64)
+    rng = np.random.default_rng(SEED + 2)
+    y = eng.evaluate(rng.integers(0, 2**31, (8, 64, eng.n_channels)) %
+                     np.array(eng.chain.moduli))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            want = eng.reduce(y)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = eng.reduce(y)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    check(torch.equal(got, want), "rns_to_field graph replay differs")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.reduce(y)
+        torch.cuda.synchronize(dev)
+    kernels = sum(ev.count for ev in _kernel_events(prof))
+    return {"graph_ms": median_ms(graph.replay, dev, runs=20, per_run=5),
+            "eager_ms": median_ms(lambda: eng.reduce(y), dev, runs=20,
+                                  per_run=5),
+            "kernels_per_call": kernels}
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch sees no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
+    env = phase_env(dev)
+    kern = phase_kernels(dev, env["device"])
+    phase_engines(dev)
+    paper = phase_slice(dev, "paper")
+    phase_slice(dev, "mixed_eager_lazy", d_uniform=256, accum="int32_native",
+                d_tile=171, reduction_by_workload={"dilithium": "lazy"})
+    phase_profile(dev)
+
+    rows = []
+    for name, replaces, timed in (
+            ("limb_matmul", "src/repro/kernels/limb_matmul/kernel.py:44",
+             kern["limb_matmul"][0]),
+            ("mont_fold", "src/repro/kernels/mont_fold/kernel.py:35",
+             kern["mont_fold"][0])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{name}.cu",
+                     "replaces": replaces,
+                     "launches": paper["launches"][name],
+                     "max_abs_err": kern["max_abs_err"][name],
+                     "ms": timed["kernel_ms"],
+                     "device_ms": timed["kernel_device_ms"],
+                     "plain_ms": timed["plain_ms"],
+                     "bound_ms": timed["bound_ms"],
+                     "bound_by": timed["bound_by"],
+                     "library_ms": timed["library_ms"]})
+    emit({"total_s": time.perf_counter() - t_start})
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

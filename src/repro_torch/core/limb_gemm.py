@@ -1,0 +1,268 @@
+"""Limb-interleaved exact matrix transforms (paper §5.1, §6.2).
+
+A field dot product  y_j = Σ_i a_i · W_ij  (mod m)  is staged as:
+
+  1. u8 limb planes of the data (unsigned) and balanced s8 limb planes of the
+     twiddle matrix (signed) — :mod:`repro_torch.core.limbs`;
+  2. one **fused interleaved GEMM** per staging pass: the limbs of both
+     operands are interleaved into a single (N, d·La)×(d·La, d·n_diag)
+     product whose K dimension accumulates the multi-limb convolution
+     (Property 5.1 packing), or the identical per-plane form (La·Lw separate
+     products) for large d.  Every product is the ``limb_matmul`` kernel (K1);
+  3. the fold: under the **eager** discipline one fold per staging pass;
+     under the **lazy** κ-amortised discipline (paper §7.2.1) unreduced int32
+     diagonals accumulate across up to κ passes
+     (:class:`repro_torch.core.accumulator.LazyWindowAccumulator` checks the
+     overflow bound) and fold once per window.  Every fold is the
+     ``mont_fold`` kernel (K2) unless ``fold_fn`` swaps it.
+
+Accumulator models: ``fp32_mantissa`` (TPU v4, exact within 2**24) and
+``int32_native`` (v5e/v5p, exact to 2**31 - 1).  The per-pass ceiling
+d_max = ⌊window / (C · 32640)⌋ gives the paper's d_max^BN = 128 and
+d_max^Dil = 171.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Literal
+
+import numpy as np
+import torch
+
+from repro_torch.core import accumulator as ACC
+from repro_torch.core import field as F
+from repro_torch.core import limbs as L
+from repro_torch.core.accumulator import (AccumModel, MAX_PIXEL_PRODUCT,  # noqa: F401
+                                          accumulator_window)
+from repro_torch.kernels.limb_matmul.ops import limb_matmul
+from repro_torch.kernels.mont_fold.ops import mont_fold
+
+Reduction = Literal["eager", "lazy"]
+REDUCTIONS = ("eager", "lazy")
+
+
+def check_reduction(reduction: str, kappa: int | None = None) -> str:
+    """Validate a reduction-mode string; with ``kappa``, also reject the
+    eager+κ>1 combination (deferral depth only means something when folds
+    are deferred)."""
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"unknown reduction mode {reduction!r}; "
+                         f"expected one of {REDUCTIONS}")
+    if reduction == "eager" and kappa not in (None, 1):
+        raise ValueError("kappa-amortisation requires reduction='lazy' "
+                         f"(got kappa={kappa} with eager folds)")
+    return reduction
+
+
+def lazy_window_sizes(n_passes: int, d_tile: int, c: int, accum: AccumModel,
+                      kappa: int | None) -> tuple[int, ...]:
+    """κ-window cut of a staged transform, overflow-checked for ``accum``;
+    raises ValueError when κ exceeds κ_max(accum, d_tile, c)."""
+    return ACC.window_plan(n_passes, kappa, ACC.kappa_max(accum, d_tile, c))
+
+
+def staging_d_max(data_limbs: int, tw_limbs: int, accum: AccumModel) -> int:
+    """Per-pass unpadded degree ceiling before VPU re-injection (Prop. 5.1)."""
+    c = min(data_limbs, tw_limbs)  # densest convolution diagonal
+    return accumulator_window(accum) // (c * MAX_PIXEL_PRODUCT)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelPlan:
+    """Precompiled single-channel transform: twiddle limb planes + staging."""
+
+    modulus: int
+    d: int
+    data_limbs: int
+    tw_limbs: int
+    accum: AccumModel
+    w_planes: np.ndarray        # (d, d, Lw) int8, balanced signed digits
+    fused_operand: np.ndarray | None  # (d·La, d·n_diag) int8, or None for big d
+
+    @property
+    def n_diag(self) -> int:
+        return self.data_limbs + self.tw_limbs - 1
+
+    @property
+    def d_max(self) -> int:
+        return staging_d_max(self.data_limbs, self.tw_limbs, self.accum)
+
+    @property
+    def n_passes(self) -> int:
+        return math.ceil(self.d / self.d_max)
+
+    @property
+    def gemms_per_pass(self) -> int:
+        """K1 calls per staging pass: one on the fused layout, one per
+        (p, q) limb pair in per-plane mode."""
+        return 1 if self.fused_operand is not None else \
+            self.data_limbs * self.tw_limbs
+
+    def tile_bounds(self, d_max: int | None = None) -> list[tuple[int, int]]:
+        step = d_max or self.d_max
+        out, lo = [], 0
+        while lo < self.d:
+            hi = min(lo + step, self.d)
+            out.append((lo, hi))
+            lo = hi
+        return out
+
+
+def plane_operands(plan: ChannelPlan, device) -> tuple:
+    """Device-resident copies of a plan's twiddle tensors, uploaded once.
+
+    Returns ``(w_planes, fused_operand)`` int8 tensors with exactly one entry
+    not None (matching the plan's mode); staging tiles are row slices of it.
+    """
+    if plan.fused_operand is not None:
+        return (None, torch.as_tensor(plan.fused_operand, device=device))
+    return (torch.as_tensor(plan.w_planes, device=device), None)
+
+
+def _fused_operand(w_planes: np.ndarray, data_limbs: int) -> np.ndarray:
+    """Interleave twiddle limb planes into the fused (d·La, d·n_diag) matrix."""
+    d, d2, lw = w_planes.shape
+    assert d == d2
+    n_diag = data_limbs + lw - 1
+    fused = np.zeros((d, data_limbs, d, n_diag), np.int8)
+    for p in range(data_limbs):
+        for q in range(lw):
+            fused[:, p, :, p + q] = w_planes[:, :, q]
+    return fused.reshape(d * data_limbs, d * n_diag)
+
+
+def make_channel_plan(
+    w_u32: np.ndarray,
+    modulus: int,
+    *,
+    data_limbs: int,
+    tw_limbs: int,
+    accum: AccumModel = "fp32_mantissa",
+    fuse_below: int = 2049,
+) -> ChannelPlan:
+    """Host-side precompilation of a channel twiddle matrix."""
+    d = w_u32.shape[0]
+    assert w_u32.shape == (d, d)
+    balanced = L.balanced_residue(w_u32, modulus)
+    planes = L.signed_digits(balanced, tw_limbs)  # (d, d, Lw) int8
+    fused = _fused_operand(planes, data_limbs) if d <= fuse_below else None
+    return ChannelPlan(
+        modulus=modulus, d=d, data_limbs=data_limbs, tw_limbs=tw_limbs,
+        accum=accum, w_planes=planes, fused_operand=fused,
+    )
+
+
+# --- Device-side diagonal computation ----------------------------------------
+
+
+def tile_diagonals(a_tile: torch.Tensor, w_planes_tile, fused_tile,
+                   plan: ChannelPlan) -> torch.Tensor:
+    """Diagonal sums for one staging pass, every product through K1.
+
+    a_tile: (N, dt) residues for this pass.
+    w_planes_tile: (dt, d, Lw) int8 tensor — per-plane mode.
+    fused_tile: (dt·La, d·n_diag) int8 tensor or None — fused mode.
+    Returns int32 (N, d, n_diag).
+    """
+    n = a_tile.shape[0]
+    la = plan.data_limbs
+    limbs = L.decompose_u8(a_tile, la)  # (N, dt, La) u8
+    if fused_tile is not None:
+        a_flat = limbs.reshape(n, -1)   # (N, dt·La) — K = (i, p)
+        out = limb_matmul(a_flat, fused_tile, accum=plan.accum)
+        return out.reshape(n, plan.d, plan.n_diag)
+    parts = []
+    for k in range(plan.n_diag):
+        terms = []
+        for p in range(la):
+            q = k - p
+            if 0 <= q < plan.tw_limbs:
+                terms.append(limb_matmul(limbs[..., p].contiguous(),
+                                         w_planes_tile[..., q].contiguous(),
+                                         accum=plan.accum))
+        parts.append(sum(terms[1:], terms[0]))
+    return torch.stack(parts, dim=-1)
+
+
+def staged_transform(
+    a: torch.Tensor,
+    plan: ChannelPlan,
+    *,
+    reduction: Reduction = "eager",
+    kappa: int | None = None,
+    kernel_fn=None,
+    fold_fn=None,
+    d_max: int | None = None,
+    planes=None,
+):
+    """Full staged matrix transform of one channel.
+
+    a: (N, d) residues (< modulus) in an integer tensor.
+    Returns ((N, d) int64 result, stats dict with fold/pass/window counts).
+
+    ``planes`` — optional ``(w_planes, fused_operand)`` device tensors (see
+    :func:`plane_operands`); without them the plan's planes are uploaded
+    for this call.
+    ``kernel_fn(a_tile, w_tile, f_tile, plan)`` swaps the per-pass diagonal
+    computation (default: :func:`tile_diagonals`, i.e. K1);
+    ``fold_fn(diag, modulus)`` swaps the fold (default: K2).  Unlike the JAX
+    package, ``fold_fn`` applies to the eager per-pass fold as well as the
+    lazy window fold, so both run through K2 on the card.
+
+    eager: fold after every staging pass; ``kappa`` must be None or 1.
+    lazy: accumulate unreduced int32 diagonals across up to κ passes per
+      window and fold once per window; ``kappa=None`` means one window for
+      the whole transform.  κ is checked against κ_max and overflowing
+      windows raise.
+
+    The JAX package puts ``optimization_barrier`` between passes so XLA
+    cannot fuse a fold into an open summation.  Nothing here needs it: the
+    ops run eagerly, in program order, on one CUDA stream.
+    """
+    check_reduction(reduction, kappa)
+    step = min(d_max or plan.d_max, plan.d)
+    if step > plan.d_max:
+        # Property 5.1: one staging pass must itself fit the accumulator
+        # window — an oversized tile silently rounds under fp32.
+        raise ValueError(
+            f"staging tile d_tile={step} exceeds the {plan.accum} per-pass "
+            f"ceiling d_max={plan.d_max}")
+    kernel_fn = kernel_fn or tile_diagonals
+    fold_fn = fold_fn or mont_fold
+    m = plan.modulus
+    n = a.shape[0]
+    tiles = plan.tile_bounds(d_max)
+    stats = {"n_passes": len(tiles), "n_folds": 0, "reduction": reduction,
+             "kappa": 1, "n_windows": len(tiles)}
+
+    acc = None
+    if reduction == "lazy":
+        c = min(plan.data_limbs, plan.tw_limbs)
+        windows = lazy_window_sizes(len(tiles), step, c, plan.accum, kappa)
+        stats["kappa"] = windows[0]
+        stats["n_windows"] = len(windows)
+        acc = ACC.LazyWindowAccumulator(plan.modulus, plan.accum, c,
+                                        kappa=windows[0], fold_fn=fold_fn)
+
+    w_full, f_full = planes if planes is not None else plane_operands(
+        plan, a.device)
+    y = torch.zeros((n, plan.d), dtype=torch.int64, device=a.device)
+    for t, (lo, hi) in enumerate(tiles):
+        a_tile = a[:, lo:hi]
+        w_tile, f_tile = None, None
+        if f_full is not None:
+            la = plan.data_limbs
+            f_tile = f_full[lo * la:hi * la]
+        else:
+            w_tile = w_full[lo:hi]
+        diag = kernel_fn(a_tile, w_tile, f_tile, plan)
+        if reduction == "eager":
+            y = F.addmod(y, fold_fn(diag, m), m)
+            stats["n_folds"] += 1
+        else:
+            acc.add(diag, hi - lo)
+            if acc.ready() or t + 1 == len(tiles):
+                y = F.addmod(y, acc.fold(), m)
+                stats["n_folds"] += 1
+    return y, stats

@@ -1,0 +1,131 @@
+"""Build and bind the CUDA kernels of ``repro_torch/csrc``.
+
+Each ``.cu`` file has a plain C interface.  At first use every source is
+compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
+the objects are linked into one shared library under ``build/repro_torch/``
+at the repository root, and the library is loaded with ``ctypes``.  The file
+name carries a hash of the sources and flags, so a stale library is never
+loaded.  Nothing here runs at import time, and nothing falls back: a missing
+``nvcc`` or a failed build raises.
+
+Each C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
+turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("limb_matmul.cu", "mont_fold.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name -> argtypes (pointers and the stream as void*, ints as int)
+_PROTOTYPES = {
+    "limb_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "mont_fold_launch": (_P, _P, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+@dataclasses.dataclass
+class KernelCounter:
+    """Per-kernel counters.  ``calls`` counts every wrapper call on any
+    device (the launch census of the replay reads it); ``launches`` counts
+    CUDA launches only, and proves that a run on the card went through the
+    kernel."""
+
+    calls: int = 0
+    launches: int = 0
+
+    def reset(self):
+        self.calls = 0
+        self.launches = 0
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                           "CUDA kernels of repro_torch build on a machine "
+                           "with the CUDA toolkit")
+    return nvcc
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build() -> Path:
+    """Compile the sources (one nvcc each, in parallel) and link the shared
+    library, unless the library for these exact sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for cmd, _, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{' '.join(cmd)} failed ({p.returncode}):\n{log}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp_lib = Path(tmp) / out.name
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+              *(str(obj) for _, obj, _ in procs)])
+        os.replace(tmp_lib, out)     # atomic: a reader never sees half a file
+    return out
+
+
+def load():
+    """The loaded kernel library (built on first use), argtypes set."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _PROTOTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(code: int, what: str):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{code}")

@@ -1,0 +1,27 @@
+"""ctypes binding of the K2 CUDA kernel ``mont_fold_launch``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+COUNTER = build.KernelCounter()
+
+
+def mont_fold_cuda(diags: torch.Tensor, modulus: int) -> torch.Tensor:
+    """Launch K2 on the current stream of ``diags``' device.  The caller
+    (``ops.mont_fold``) has checked dtype, n_diag, modulus and contiguity.
+    Residues leave in an int32 tensor: the kernel writes uint32 values < m
+    < 2**31, whose bits are the same."""
+    lib = build.load()
+    out = torch.empty(diags.shape[:-1], dtype=torch.int32, device=diags.device)
+    n_out = out.numel()
+    if n_out == 0:
+        return out
+    with torch.cuda.device(diags.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mont_fold_launch(diags.data_ptr(), out.data_ptr(), n_out,
+                                    diags.shape[-1], modulus, stream)
+    build.check(code, "mont_fold")
+    COUNTER.launches += 1
+    return out
