@@ -16,11 +16,21 @@ Phases, each printing one JSON line:
 3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
    int32, κ = 2) and a per-plane staged transform against an int64 numpy
    oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
-4. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
+4. fused — ``fused_ntt_tile`` (K3) against its plain version, bit for bit,
+   at the fused path's shapes and at edge cases; the single-tenant fused
+   transform (``repro_torch.kernels.fused_transform``, one K3 launch per
+   staging pass) at full width: ML-DSA d = 256 at 128 rows (both
+   accumulators) and Dilithium d = 2048 against the int64 oracle, BN254
+   d = 256 (9 channels) against the K1 + K2 engine path and the bignum
+   oracle; then K3's times beside its bound, its plain version and the
+   unfused pair K1 + K2 on the same pass, and one fused transform beside one
+   staged transform;
+5. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
    trace (λ = 4096 req/s for 0.25 s, 50:50 Dilithium:BN254, n_c = 8) and of
    the mixed eager/lazy configuration, every tenant row checked (Dilithium
    against the int64 oracle, BN254 against the CPU replay) and every kernel
-   launch counted against the engines' fold profiles; then two more runs
+   launch counted against the engines' fold profiles (and no K3 launch:
+   the replay does not take the fused path); then two more runs
    of the paper trace that split its wall time (host timers around the
    kernel wrappers and ``rns_to_field``; torch.profiler for device time).
 
@@ -50,7 +60,9 @@ from repro_torch.core import ntt as NTT                          # noqa: E402
 from repro_torch.core import rns as R                            # noqa: E402
 from repro_torch.core import workloads as WK                     # noqa: E402
 from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E402
-from repro_torch.kernels import build                            # noqa: E402
+from repro_torch.kernels import build, fused_transform          # noqa: E402
+from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda  # noqa: E402
+from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref  # noqa: E402
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1, limb_matmul_cuda  # noqa: E402
 from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref  # noqa: E402
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  # noqa: E402
@@ -80,6 +92,22 @@ K1_SHAPES = [(8, 192, 320), (8, 384, 640), (8, 513, 1280), (8, 255, 1280),
 K1_INT32_ONLY = [(8, 1536, 2560), (5, 4100, 96)]
 K1_TIMED = [(8, 513, 1280), (8, 513, 2560), (8, 256, 448)]
 K2_TIMED = [(8, 256, 5, Q), (8, 512, 5, Q), (8, 64, 7, R.make_chain(9).base[0])]
+# K3 shapes (N, K, D, n_diag, m): the ML-DSA d = 256 passes under fp32
+# (K = 513 and 255, at the replay's 8 rows and at 128), BN254 d = 256 (La = 4,
+# seven diagonals, a channel modulus), a ragged small case, a modulus near
+# 2**31; int32-only: the single ML-DSA pass (K = 768, past the fp32 window),
+# the largest fused plan (Dilithium d = 2048, a 63 MB operand) and K past the
+# shared-memory chunk with eight diagonals.
+BN_M = R.make_chain(9).base[0]
+K3_SHAPES = [(8, 513, 256, 5, Q), (8, 255, 256, 5, Q), (128, 513, 256, 5, Q),
+             (128, 512, 256, 7, BN_M), (3, 100, 70, 5, Q),
+             (16, 300, 64, 7, 2**31 - 1)]
+K3_INT32_ONLY = [(128, 768, 256, 5, Q), (8, 6144, 2048, 5, Q),
+                 (5, 4100, 96, 8, (1 << 31) - 99)]
+K3_TIMED = [(128, 768, 256, 5, Q, "int32_native"),
+            (128, 513, 256, 5, Q, "fp32_mantissa"),
+            (128, 512, 256, 7, BN_M, "fp32_mantissa"),
+            (8, 6144, 2048, 5, Q, "int32_native")]
 
 
 def emit(obj):
@@ -259,7 +287,7 @@ def phase_kernels(dev, card: str):
 
 
 def _oracle_int64(a: np.ndarray, d: int) -> np.ndarray:
-    """(a @ W) mod Q in int64: exact, since d·Q² < 2**63 for d <= 512."""
+    """(a @ W) mod Q in int64: exact, since d·Q² < 2**63 for d up to 2**17."""
     w = NTT.ntt_matrix(d, Q, negacyclic=(Q - 1) % (2 * d) == 0).astype(np.int64)
     return ((a.astype(np.int64) @ w) % Q).astype(np.uint32)
 
@@ -300,6 +328,172 @@ def phase_engines(dev):
     return out
 
 
+def _k3_bound(n: int, k: int, d: int, nd: int, bw: float) -> tuple:
+    """Least time for one K3 call: each input byte read once and the output
+    written once, against the int8 GEMM on the tensor cores plus the fold's
+    integer operations on the CUDA cores."""
+    t_bytes = (n * k + k * d * nd + 4 * n * d) / bw * 1e3
+    t_ops = (2 * n * k * d * nd / INT8_OPS
+             + n * d * nd * FOLD_OPS_PER_DIAG / CUDA_CORE_OPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_fused(dev, card: str):
+    """K3 against its plain version, the fused transform at full width with
+    K3's launches counted per call, and the times."""
+    rng = np.random.default_rng(SEED + 3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst, n_checked = 0, 0
+
+    def k3_inputs(n, k, d, nd):
+        a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
+        b3 = torch.as_tensor(rng.integers(-128, 128, (k, d, nd)).astype(np.int8),
+                             device=dev)
+        return a, b3
+
+    def k3_check(a, b3, m, accum, what):
+        nonlocal worst, n_checked
+        got = fused_ntt_tile_cuda(a, b3, m, accum)
+        want = fused_ntt_tile_ref(a, b3, m, accum)
+        err = max_abs_err(got, want)
+        check(err == 0, f"fused_ntt_tile {accum} {what} m={m}: max |err| {err}")
+        worst = max(worst, err)
+        n_checked += 1
+
+    for n, k, d, nd, m in K3_SHAPES:
+        a, b3 = k3_inputs(n, k, d, nd)
+        for accum in ("fp32_mantissa", "int32_native"):
+            k3_check(a, b3, m, accum, (n, k, d, nd))
+    for n, k, d, nd, m in K3_INT32_ONLY:
+        a, b3 = k3_inputs(n, k, d, nd)
+        k3_check(a, b3, m, "int32_native", (n, k, d, nd))
+    # the extreme pass: every product 255·(-128), each diagonal at the fp32 edge
+    a = torch.full((8, 513), 255, dtype=torch.uint8, device=dev)
+    b3 = torch.full((513, 256, 5), -128, dtype=torch.int8, device=dev)
+    for accum in ("fp32_mantissa", "int32_native"):
+        for m in (Q, 2**31 - 1):
+            k3_check(a, b3, m, accum, "extreme (8, 513, 256, 5)")
+    # int32 wrap past the window: 255·127·70000 > 2**31 wraps to a negative
+    # diagonal before the fold
+    a = torch.full((2, 70000), 255, dtype=torch.uint8, device=dev)
+    b3 = torch.full((70000, 32, 5), 127, dtype=torch.int8, device=dev)
+    for m in (Q, (1 << 31) - 99, 2**31 - 1):
+        k3_check(a, b3, m, "int32_native", "int32 wrap (2, 70000, 32, 5)")
+
+    # The fused path at full width, K3's launches counted in each call.
+    launches, transforms = 0, []
+
+    def fused_run(label, a, plan, planes):
+        nonlocal launches
+        K1.reset()
+        K2.reset()
+        K3.reset()
+        y = fused_transform(a, plan, planes=planes)
+        torch.cuda.synchronize(dev)
+        passes = len(plan.tile_bounds())
+        check(K3.launches == passes and K1.launches == K2.launches == 0,
+              f"{label}: K3 launched {K3.launches} times for {passes} passes "
+              f"(K1 {K1.launches}, K2 {K2.launches})")
+        launches += K3.launches
+        return y, passes
+
+    a_np = rng.integers(0, Q, (128, 256), dtype=np.uint64).astype(np.uint32)
+    a_mldsa = torch.as_tensor(a_np.astype(np.int64), device=dev)
+    want = _oracle_int64(a_np, 256)
+    w = NTT.ntt_matrix(256, Q, negacyclic=True)
+    mldsa = {}
+    for accum, want_passes in (("fp32_mantissa", 2), ("int32_native", 1)):
+        plan = G.make_channel_plan(w, Q, data_limbs=3, tw_limbs=3, accum=accum)
+        planes = G.plane_operands(plan, dev)
+        y, passes = fused_run(f"ml-dsa {accum}", a_mldsa, plan, planes)
+        check(passes == want_passes, f"ml-dsa {accum}: {passes} passes")
+        check(np.array_equal(y.cpu().numpy().astype(np.uint32), want),
+              f"fused transform ml-dsa d=256 {accum} differs from the oracle")
+        mldsa[accum] = (plan, planes)
+        transforms.append({"config": f"ml-dsa d=256 {accum}", "rows": 128,
+                           "passes": passes, "launches": passes,
+                           "against": "int64 oracle"})
+
+    a_np = rng.integers(0, Q, (8, 2048), dtype=np.uint64).astype(np.uint32)
+    plan = G.make_channel_plan(NTT.ntt_matrix(2048, Q, negacyclic=True), Q,
+                               data_limbs=3, tw_limbs=3, accum="int32_native")
+    y, passes = fused_run("dilithium d=2048", torch.as_tensor(
+        a_np.astype(np.int64), device=dev), plan, G.plane_operands(plan, dev))
+    check(passes == 1 and np.array_equal(y.cpu().numpy().astype(np.uint32),
+                                         _oracle_int64(a_np, 2048)),
+          "fused transform dilithium d=2048 differs from the oracle")
+    transforms.append({"config": "dilithium d=2048 int32_native", "rows": 8,
+                       "passes": passes, "launches": passes,
+                       "operand_bytes": plan.fused_operand.nbytes,
+                       "against": "int64 oracle"})
+    del plan
+
+    eng = WK.BN254Engine(256, device=dev)
+    vals = np.array([[int.from_bytes(rng.bytes(16), "little") for _ in range(256)]
+                     for _ in range(128)], object)
+    a_res = eng.ingest(vals)
+    outs, bn_launches = [], 0
+    for ci, (plan, planes) in enumerate(zip(eng.plans, eng.device_planes())):
+        y, passes = fused_run(f"bn254 channel {ci}", a_res[..., ci], plan, planes)
+        outs.append(y)
+        bn_launches += passes
+    y = torch.stack(outs, dim=-1)
+    check(torch.equal(y, eng.evaluate(a_res)),
+          "fused transform bn254 d=256 differs from the K1 + K2 engine path")
+    check(torch.equal(eng.reduce(y), eng.e2e(a_res)),
+          "rns_to_field of the fused channels differs from the engine's e2e")
+    a8, y8 = a_res[:8].cpu().numpy(), y[:8].cpu().numpy()
+    for ci, m in enumerate(eng.chain.moduli):
+        w_ch = (eng.omega.astype(object) % m).astype(np.uint32)
+        check(np.array_equal(y8[..., ci].astype(np.uint32),
+                             NTT.matrix_ntt_oracle_np(a8[..., ci], w_ch, m)),
+              f"fused transform bn254 channel {ci} differs from the oracle")
+    transforms.append({"config": "bn254 d=256 fp32_mantissa, 9 channels",
+                       "rows": 128, "passes": eng.n_passes,
+                       "launches": bn_launches,
+                       "against": "K1 + K2 engine, e2e, bignum oracle (8 rows)"})
+
+    bw = bandwidth(card)
+    k3_times = []
+    for n, k, d, nd, m, accum in K3_TIMED:
+        a, b3 = k3_inputs(n, k, d, nd)
+        b2 = b3.view(k, d * nd)
+
+        def fused():
+            return fused_ntt_tile_cuda(a, b3, m, accum)
+
+        def pair():
+            return mont_fold_cuda(limb_matmul_cuda(a, b2, accum).view(n, d, nd), m)
+
+        check(torch.equal(fused(), pair()), f"K3 != K1 + K2 at {(n, k, d, nd)}")
+        bound, by = _k3_bound(n, k, d, nd, bw)
+        pair_dev = [device_ms(pair, name, dev)
+                    for name in ("limb_matmul_kernel", "mont_fold_kernel")]
+        k3_times.append({
+            "shape": [n, k, d, nd], "accum": accum, "modulus": m,
+            "kernel_ms": median_ms(fused, dev),
+            "kernel_device_ms": device_ms(fused, "fused_ntt_tile_kernel", dev),
+            "plain_ms": median_ms(lambda: fused_ntt_tile_ref(a, b3, m, accum), dev),
+            # no single torch call computes the GEMM and the fold together
+            "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "unfused_ms": median_ms(pair, dev),
+            "unfused_device_ms": None if None in pair_dev else sum(pair_dev)})
+    transform_ms = {}
+    for accum, (plan, planes) in mldsa.items():
+        transform_ms[accum] = {
+            "passes": plan.n_passes,
+            "fused_ms": median_ms(lambda: fused_transform(a_mldsa, plan, planes=planes),
+                                  dev, runs=20, per_run=5),
+            "staged_ms": median_ms(lambda: G.staged_transform(a_mldsa, plan, planes=planes),
+                                   dev, runs=20, per_run=5)}
+    out = {"phase": "fused", "checked": n_checked, "max_abs_err": worst,
+           "transforms": transforms, "launches": launches,
+           "fused_ntt_tile": k3_times, "transform_ms_128_rows": transform_ms}
+    emit(out)
+    return out
+
+
 def _replay(cos, **kw):
     return serve_crypto(duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED,
                         validate=True, coscheduler=cos, **kw)
@@ -311,9 +505,12 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
     cos = SliceCoScheduler(device=dev, **cos_kw)
     K1.reset()
     K2.reset()
+    K3.reset()
     results, n_ops, wall = _replay(cos, d_uniform=d_uniform)
     torch.cuda.synchronize(dev)
     launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
+    check(K3.launches == 0, f"{label}: the replay launched K3 {K3.launches} "
+          f"times; it runs K1 and K2 only")
     want_k1 = sum(r.stats["n_passes"] * r.stats["n_channels"] for r in results)
     want_k2 = sum(r.stats["n_folds"] for r in results)
     check(launches == {"limb_matmul": want_k1, "mont_fold": want_k2}
@@ -348,7 +545,7 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
     out = {"phase": "slice", "label": label, "requests": n_ops,
            "per_workload": per_workload, "wall_s": wall,
            "ops_per_s": n_ops / wall, "dispatches": len(results),
-           "launches": launches,
+           "launches": launches, "fused_ntt_tile_launches": K3.launches,
            "launches_per_dispatch": {k: v / len(results)
                                      for k, v in launches.items()},
            "rows_checked": len(cpu_rows)}
@@ -488,22 +685,28 @@ def main():
     env = phase_env(dev)
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
+    fused = phase_fused(dev, env["device"])
     paper = phase_slice(dev, "paper")
     phase_slice(dev, "mixed_eager_lazy", d_uniform=256, accum="int32_native",
                 d_tile=171, reduction_by_workload={"dilithium": "lazy"})
     phase_profile(dev)
 
     rows = []
-    for name, replaces, timed in (
+    for name, replaces, timed, launches, err in (
             ("limb_matmul", "src/repro/kernels/limb_matmul/kernel.py:44",
-             kern["limb_matmul"][0]),
+             kern["limb_matmul"][0], paper["launches"]["limb_matmul"],
+             kern["max_abs_err"]["limb_matmul"]),
             ("mont_fold", "src/repro/kernels/mont_fold/kernel.py:35",
-             kern["mont_fold"][0])):
+             kern["mont_fold"][0], paper["launches"]["mont_fold"],
+             kern["max_abs_err"]["mont_fold"]),
+            ("fused_ntt_tile", "src/repro/kernels/fused_ntt_tile/kernel.py:58",
+             fused["fused_ntt_tile"][0], fused["launches"],
+             fused["max_abs_err"])):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{name}.cu",
                      "replaces": replaces,
-                     "launches": paper["launches"][name],
-                     "max_abs_err": kern["max_abs_err"][name],
+                     "launches": launches,
+                     "max_abs_err": err,
                      "ms": timed["kernel_ms"],
                      "device_ms": timed["kernel_device_ms"],
                      "plain_ms": timed["plain_ms"],

@@ -23,15 +23,12 @@
 // blocks, M = 2560 80.  Ragged N, K and M are masked in the kernel (K = 513
 // is odd); nothing is padded.
 //
-// Two accumulator models, as on the TPU:
-//   int32_native  — 32-bit integer multiply-add, wrapping mod 2**32 (done in
-//                   uint32_t, where wrapping is defined);
-//   fp32_mantissa — float FFMA (not TF32 tensor cores), cast to int32 at the
-//                   end: exact inside the 2**24 window, rounding beyond it as
-//                   the modelled v4 MXU accumulator does.
-// Inside the per-pass window every order of summation gives the same bits.
+// The two accumulator models (int32 wrap, fp32 FFMA) are in accum.cuh,
+// shared with K3.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "accum.cuh"
 
 namespace {
 
@@ -39,17 +36,6 @@ constexpr int ROWS = 8;     // C rows per block (the replay's n_c)
 constexpr int COLS = 32;    // C columns per block: one per lane
 constexpr int WARPS = 8;    // warps per block, splitting K
 constexpr int KC = 2048;    // K chunk staged in shared memory
-
-__device__ __forceinline__ void mac(uint32_t& acc, uint32_t a, int32_t b) {
-  acc += (uint32_t)((int32_t)a * b);
-}
-
-__device__ __forceinline__ void mac(float& acc, uint32_t a, int32_t b) {
-  acc = fmaf((float)a, (float)b, acc);
-}
-
-__device__ __forceinline__ int32_t to_int32(uint32_t s) { return (int32_t)s; }
-__device__ __forceinline__ int32_t to_int32(float s) { return __float2int_rz(s); }
 
 template <typename Acc>
 __global__ void __launch_bounds__(ROWS * COLS)

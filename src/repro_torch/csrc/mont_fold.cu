@@ -14,13 +14,11 @@
 // the cost, not the bytes or the arithmetic.
 //
 // Design.  One thread per output.  n_diag is a template parameter, so the
-// Horner loop over the diagonals and the 8 conditional doublings of
-// acc = (acc << 8) mod m unroll completely, in uint32_t exactly as the TPU
-// kernel (acc < m < 2**31, so acc << 1 never overflows).  CUDA's % truncates
-// toward zero, so a negative remainder gets m added: the floor mod of
-// jnp.mod.
+// Horner loop of fold.cuh (shared with K3's epilogue) unrolls completely.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fold.cuh"
 
 namespace {
 
@@ -32,22 +30,7 @@ mont_fold_kernel(const int32_t* __restrict__ diags, uint32_t* __restrict__ out,
                  int n_out, uint32_t m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_out) return;
-  const int32_t* d = diags + (size_t)i * NDIAG;
-  const int32_t mi = (int32_t)m;
-  uint32_t acc = 0;
-#pragma unroll
-  for (int k = NDIAG - 1; k >= 0; --k) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      acc <<= 1;
-      acc = acc >= m ? acc - m : acc;
-    }
-    int32_t r = d[k] % mi;
-    if (r < 0) r += mi;
-    const uint32_t t = acc + (uint32_t)r;
-    acc = t >= m ? t - m : t;
-  }
-  out[i] = acc;
+  out[i] = fold_diagonals<NDIAG>(diags + (size_t)i * NDIAG, m);
 }
 
 template <int NDIAG>

@@ -1,12 +1,13 @@
 """Build and bind the CUDA kernels of ``repro_torch/csrc``.
 
-Each ``.cu`` file has a plain C interface.  At first use every source is
+Each ``.cu`` file has a plain C interface; the ``.cuh`` headers beside them
+hold device code that two kernels share.  At first use every source is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
 the objects are linked into one shared library under ``build/repro_torch/``
 at the repository root, and the library is loaded with ``ctypes``.  The file
-name carries a hash of the sources and flags, so a stale library is never
-loaded.  Nothing here runs at import time, and nothing falls back: a missing
-``nvcc`` or a failed build raises.
+name carries a hash of the sources, headers and flags, so a stale library is
+never loaded.  Nothing here runs at import time, and nothing falls back: a
+missing ``nvcc`` or a failed build raises.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero code into an exception.
@@ -25,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("limb_matmul.cu", "mont_fold.cu")
+SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -34,6 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PROTOTYPES = {
     "limb_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "mont_fold_launch": (_P, _P, _I, _I, _I, _P),
+    "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -64,9 +66,14 @@ def _nvcc() -> str:
     return nvcc
 
 
+def headers() -> tuple[str, ...]:
+    """The shared ``.cuh`` headers the sources include."""
+    return tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + headers():
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
