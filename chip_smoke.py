@@ -10,9 +10,12 @@ Phases, each printing one JSON line:
 2. kernels — ``limb_matmul`` (K1) and ``mont_fold`` (K2) against their plain
    PyTorch versions on the card, bit for bit, at every main-path shape and
    at edge cases; then their times at the main-path shapes (CUDA events
-   around runs of back-to-back calls, median of 50 runs; and the kernel's
+   around runs of back-to-back calls, median of 50 runs, K1 in turns with
+   its plain version and the library call; and the kernel's
    own device time from torch.profiler) beside the plain version, the bound
-   and, for K1, one library call;
+   and, for K1, one library call (its time per call and on the device) and
+   K1's grid size; and the launch path of one K1 call split into the bare
+   ctypes launch, the ``*_cuda`` wrapper and the full ``ops`` call;
 3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
    int32, κ = 2) and a per-plane staged transform against an int64 numpy
    oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
@@ -63,9 +66,11 @@ from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E40
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda  # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref  # noqa: E402
-from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1, limb_matmul_cuda  # noqa: E402
+from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1, grid_blocks, limb_matmul_cuda  # noqa: E402
+from repro_torch.kernels.limb_matmul.ops import limb_matmul      # noqa: E402
 from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref  # noqa: E402
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  # noqa: E402
+from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
 from repro_torch.launch.serve import serve_crypto                # noqa: E402
 
@@ -84,12 +89,19 @@ FOLD_OPS_PER_DIAG = 8 * 3 + 6
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
-# (La = 4, seven diagonals), a 128-row ladder launch, a ragged small case,
-# int32-only shapes past the fp32 window and past the shared-memory K chunk.
+# (La = 4, seven diagonals), a 128-row ladder launch; then the kernel's
+# edges: M not a multiple of its 8-byte B word (the byte-load path), K = 1,
+# N = 9 and 16 (a ragged and a second 8-row block).
 K1_SHAPES = [(8, 192, 320), (8, 384, 640), (8, 513, 1280), (8, 255, 1280),
              (8, 513, 2560), (8, 510, 2560), (8, 256, 448), (128, 513, 1280),
-             (128, 256, 128), (3, 100, 70)]
-K1_INT32_ONLY = [(8, 1536, 2560), (5, 4100, 96)]
+             (128, 256, 128), (3, 100, 70), (8, 513, 1283), (8, 1, 1280),
+             (3, 1, 70), (9, 513, 1280), (16, 256, 448)]
+# int32 only (N, K, M, fill): random operands past the fp32 window and past
+# one chunk of K (640 k per block); constant operands whose int32 sum
+# wraps (fill = (A value, B value)), as test_limb_matmul_int32_wraps_like_int32
+# has it: 255·127·131072 and 255·(-128)·65794 both leave int32.
+K1_INT32_ONLY = [(8, 1536, 2560, None), (5, 4100, 96, None),
+                 (1, 131072, 2, (255, 127)), (8, 65794, 64, (255, -128))]
 K1_TIMED = [(8, 513, 1280), (8, 513, 2560), (8, 256, 448)]
 K2_TIMED = [(8, 256, 5, Q), (8, 512, 5, Q), (8, 64, 7, R.make_chain(9).base[0])]
 # K3 shapes (N, K, D, n_diag, m): the ML-DSA d = 256 passes under fp32
@@ -131,25 +143,35 @@ def median_ms(fn, dev, runs=50, per_run=20, warmup=10) -> float:
     back-to-back calls, divided by ``per_run``; the median of ``runs`` such
     runs, after a warm-up.  Host enqueue time is part of it when a call is
     shorter than its launch."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize(dev)
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_run):
+    return median_ms_turns({"fn": fn}, dev, runs, per_run, warmup)["fn"]
+
+
+def median_ms_turns(fns: dict, dev, runs=50, per_run=20, warmup=10) -> dict:
+    """``median_ms`` of several functions taken in turns: each run times
+    every function once, in order, so that the host's noise falls on all of
+    them alike.  Calls that are host-bound are compared this way."""
+    for fn in fns.values():
+        for _ in range(warmup):
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_run)
-    return statistics.median(times)
+    torch.cuda.synchronize(dev)
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(per_run):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / per_run)
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
-def device_ms(fn, kernel: str, dev, n=50) -> float | None:
-    """Mean device time of one launch of ``kernel`` (torch.profiler), or
-    None when the profiler sees no device time."""
+def device_ms(fn, kernel: str | None, dev, n=50) -> float | None:
+    """Mean device time of one launch of ``kernel`` (torch.profiler), or,
+    with ``kernel=None``, of all the device work of one call of ``fn``; None
+    when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize(dev)
@@ -157,10 +179,34 @@ def device_ms(fn, kernel: str, dev, n=50) -> float | None:
         for _ in range(n):
             fn()
         torch.cuda.synchronize(dev)
+    if kernel is None:
+        total = sum(ev.self_device_time_total for ev in _kernel_events(prof))
+        return total / n / 1e3 or None
     for ev in prof.key_averages():
         if kernel in ev.key and ev.count:
             return ev.self_device_time_total / ev.count / 1e3 or None
     return None
+
+
+def host_us_turns(fns: dict, dev, calls=1000, runs=7, warmup=50) -> dict:
+    """Host microseconds per call of each function called back to back: the
+    median of ``runs`` runs of ``calls`` calls, each run ended by a
+    synchronise, the functions taking turns run by run.  While a call takes
+    the host longer than its work takes the device, this is the host's cost
+    of one call."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize(dev)
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(dev)
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -178,7 +224,7 @@ def phase_env(dev):
     cap = torch.cuda.get_device_capability(dev)
     check(cap == (9, 0), f"compute capability {cap}, the kernels are sm_90a")
     t0 = time.perf_counter()
-    build.load()
+    build.entries()
     env = {"phase": "env", "nvidia_smi": smi[0],
            "device": torch.cuda.get_device_name(dev), "capability": list(cap),
            "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -194,7 +240,10 @@ def phase_kernels(dev, card: str):
     worst = {"limb_matmul": 0, "mont_fold": 0}
     n_checked = {"limb_matmul": 0, "mont_fold": 0}
 
-    def k1_inputs(n, k, m):
+    def k1_inputs(n, k, m, fill=None):
+        if fill is not None:
+            return (torch.full((n, k), fill[0], dtype=torch.uint8, device=dev),
+                    torch.full((k, m), fill[1], dtype=torch.int8, device=dev))
         a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
         b = torch.as_tensor(rng.integers(-128, 128, (k, m)).astype(np.int8), device=dev)
         return a, b
@@ -211,14 +260,29 @@ def phase_kernels(dev, card: str):
         a, b = k1_inputs(n, k, m)
         for accum in ("fp32_mantissa", "int32_native"):
             k1_check(a, b, accum, (n, k, m))
-    for n, k, m in K1_INT32_ONLY:
-        a, b = k1_inputs(n, k, m)
-        k1_check(a, b, "int32_native", (n, k, m))
+    for n, k, m, fill in K1_INT32_ONLY:
+        a, b = k1_inputs(n, k, m, fill)
+        if fill is not None:
+            exact = fill[0] * fill[1] * k
+            wrapped = (exact + 2**31) % 2**32 - 2**31
+            check(exact != wrapped and bool(
+                (limb_matmul_ref(a, b, "int32_native") == wrapped).all()),
+                  f"limb_matmul int32 {(n, k, m)}: the plain version does not "
+                  f"wrap {exact} to {wrapped}")
+        k1_check(a, b, "int32_native", (n, k, m, fill))
     # the extreme pass: every product 255·(-128), the sum at the fp32 edge
     a = torch.full((8, 513), 255, dtype=torch.uint8, device=dev)
     b = torch.full((513, 1280), -128, dtype=torch.int8, device=dev)
     for accum in ("fp32_mantissa", "int32_native"):
         k1_check(a, b, accum, "extreme (8, 513, 1280)")
+    # B whose rows are not 8-byte aligned though M is a multiple of 8: the
+    # kernel takes its byte-load path
+    a, b = k1_inputs(8, 513, 1280)
+    b_odd = torch.empty(b.numel() + 1, dtype=torch.int8, device=dev)[1:].view_as(b)
+    b_odd.copy_(b)
+    check(b_odd.data_ptr() % 8 != 0 and b_odd.is_contiguous(), "misaligned B")
+    for accum in ("fp32_mantissa", "int32_native"):
+        k1_check(a, b_odd, accum, "B at an odd address (8, 513, 1280)")
 
     def k2_check(diags, m, what):
         got = mont_fold_cuda(diags, m)
@@ -255,16 +319,23 @@ def phase_kernels(dev, card: str):
         nbytes = n * k + k * m + 4 * n * m
         ops = 2 * n * k * m
         t_bytes, t_ops = nbytes / bw * 1e3, ops / INT8_OPS * 1e3
+        # K1 and torch.matmul are both host-bound per call: timed in turns
+        ms = median_ms_turns({
+            "kernel": lambda: limb_matmul_cuda(a, b, "fp32_mantissa"),
+            "library": lambda: torch.matmul(a_f, b_f),
+            "plain": lambda: limb_matmul_ref(a, b, "fp32_mantissa")}, dev)
         k1_times.append({
             "shape": [n, k, m], "accum": "fp32_mantissa",
-            "kernel_ms": median_ms(lambda: limb_matmul_cuda(a, b, "fp32_mantissa"), dev),
+            "kernel_ms": ms["kernel"],
             "kernel_device_ms": device_ms(
                 lambda: limb_matmul_cuda(a, b, "fp32_mantissa"),
                 "limb_matmul_kernel", dev),
-            "plain_ms": median_ms(lambda: limb_matmul_ref(a, b, "fp32_mantissa"), dev),
-            "library_ms": median_ms(lambda: torch.matmul(a_f, b_f), dev),
+            "plain_ms": ms["plain"],
+            "library_ms": ms["library"],
+            "library_device_ms": device_ms(lambda: torch.matmul(a_f, b_f), None, dev),
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "blocks": grid_blocks(n, m)})
     k2_times = []
     for n, d, nd, m in K2_TIMED:
         diags = diags_in(-(2**24), 2**24, (n, d, nd))
@@ -281,9 +352,46 @@ def phase_kernels(dev, card: str):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
     out = {"phase": "kernels", "checked": n_checked, "max_abs_err": worst,
-           "limb_matmul": k1_times, "mont_fold": k2_times}
+           "limb_matmul": k1_times, "mont_fold": k2_times,
+           "launch_path": _launch_path(dev, *k1_inputs(*K1_TIMED[0]),
+                                       diags_in(-(2**24), 2**24, K2_TIMED[0][:3]),
+                                       K2_TIMED[0][3])}
     emit(out)
     return out
+
+
+def _launch_path(dev, a, b, diags, m) -> dict:
+    """Host µs of one K1 call at the first timed shape (fp32), back to back,
+    layer by layer: the bare ctypes launch with its entry, pointers, device
+    index and stream resolved in advance; the output's allocation alone; the
+    ``limb_matmul_cuda`` wrapper (allocation, stream lookup, launch); the
+    full ``ops.limb_matmul`` call (its checks on top); and ``torch.matmul``
+    on the same operands as floats.  K2's full ``ops.mont_fold`` call at its first timed shape is
+    beside them.  All take turns (``host_us_turns``).  The bare launches go
+    around the wrappers, so no counter sees them."""
+    n, k = a.shape
+    m_cols = b.shape[1]
+    out = torch.empty((n, m_cols), dtype=torch.int32, device=dev)
+    fn = build.entries()["limb_matmul_launch"]
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, k, m_cols, 1,
+            dev.index, build.current_stream(dev.index))
+
+    def bare():
+        build.check(fn(*args), "limb_matmul")
+
+    bare()
+    check(torch.equal(out, limb_matmul_ref(a, b, "fp32_mantissa")),
+          "bare K1 launch differs from the plain version")
+    a_f, b_f = a.float(), b.float()
+    us = host_us_turns({
+        "bare_launch_us": bare,
+        "alloc_us": lambda: a.new_empty((n, m_cols), dtype=torch.int32),
+        "wrapper_us": lambda: limb_matmul_cuda(a, b, "fp32_mantissa"),
+        "ops_us": lambda: limb_matmul(a, b, accum="fp32_mantissa"),
+        "library_us": lambda: torch.matmul(a_f, b_f),
+        "mont_fold_ops_us": lambda: mont_fold(diags, m)}, dev)
+    return {"shape": [n, k, m_cols], "accum": "fp32_mantissa",
+            "mont_fold_shape": list(diags.shape), **us}
 
 
 def _oracle_int64(a: np.ndarray, d: int) -> np.ndarray:
@@ -608,6 +716,8 @@ def phase_profile(dev):
     _replay(cos)
     torch.cuda.synchronize(dev)
     spent = {"limb_matmul": 0.0, "mont_fold": 0.0, "rns_to_field": 0.0}
+    K1.reset()
+    K2.reset()
     with _host_timers(spent):
         t0 = time.perf_counter()
         results, _, _ = _replay(cos)
@@ -633,6 +743,8 @@ def phase_profile(dev):
            "dispatches": len(results), "bn254_dispatches": n_bn,
            "host_s": spent,
            "host_share": {k: v / wall for k, v in spent.items()},
+           "host_us_per_call": {"limb_matmul": spent["limb_matmul"] / K1.calls * 1e6,
+                                "mont_fold": spent["mont_fold"] / K2.calls * 1e6},
            "other_host_s": wall - sum(spent.values()),
            "device_s": device if busy_us else None,
            "device_busy_s": busy_us / 1e6 if busy_us else None,

@@ -35,6 +35,7 @@
 
 #include "accum.cuh"
 #include "fold.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -140,22 +141,25 @@ void launch(const uint8_t* a, const int8_t* b3, int32_t* out, int n, int k,
 // residues < m < 2**31 in int32 words.
 extern "C" int fused_ntt_tile_launch(const void* a, const void* b3, void* out,
                                      int n, int k, int d, int n_diag,
-                                     int modulus, int fp32, void* stream) {
+                                     int modulus, int fp32, int device,
+                                     void* stream) {
   const uint8_t* pa = static_cast<const uint8_t*>(a);
   const int8_t* pb = static_cast<const int8_t*>(b3);
   int32_t* po = static_cast<int32_t*>(out);
   const uint32_t m = (uint32_t)modulus;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_diag) {
-    case 1: launch<1>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 2: launch<2>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 3: launch<3>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 4: launch<4>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 5: launch<5>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 6: launch<6>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 7: launch<7>(pa, pb, po, n, k, d, m, fp32, s); break;
-    case 8: launch<8>(pa, pb, po, n, k, d, m, fp32, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_on(device, [&]() {
+    switch (n_diag) {
+      case 1: launch<1>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 2: launch<2>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 3: launch<3>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 4: launch<4>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 5: launch<5>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 6: launch<6>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 7: launch<7>(pa, pb, po, n, k, d, m, fp32, s); break;
+      case 8: launch<8>(pa, pb, po, n, k, d, m, fp32, s); break;
+      default: return cudaErrorInvalidValue;
+    }
+    return cudaSuccess;
+  });
 }

@@ -19,6 +19,7 @@
 #include <stdint.h>
 
 #include "fold.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -45,21 +46,24 @@ void launch(const int32_t* d, uint32_t* o, int n_out, uint32_t m,
 // n_diag in 1..8 (5 for Dilithium, 7 for BN254); anything else is refused
 // with cudaErrorInvalidValue before any launch.
 extern "C" int mont_fold_launch(const void* diags, void* out, int n_out,
-                                int n_diag, int modulus, void* stream) {
+                                int n_diag, int modulus, int device,
+                                void* stream) {
   const int32_t* d = static_cast<const int32_t*>(diags);
   uint32_t* o = static_cast<uint32_t*>(out);
   const uint32_t m = (uint32_t)modulus;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_diag) {
-    case 1: launch<1>(d, o, n_out, m, s); break;
-    case 2: launch<2>(d, o, n_out, m, s); break;
-    case 3: launch<3>(d, o, n_out, m, s); break;
-    case 4: launch<4>(d, o, n_out, m, s); break;
-    case 5: launch<5>(d, o, n_out, m, s); break;
-    case 6: launch<6>(d, o, n_out, m, s); break;
-    case 7: launch<7>(d, o, n_out, m, s); break;
-    case 8: launch<8>(d, o, n_out, m, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_on(device, [&]() {
+    switch (n_diag) {
+      case 1: launch<1>(d, o, n_out, m, s); break;
+      case 2: launch<2>(d, o, n_out, m, s); break;
+      case 3: launch<3>(d, o, n_out, m, s); break;
+      case 4: launch<4>(d, o, n_out, m, s); break;
+      case 5: launch<5>(d, o, n_out, m, s); break;
+      case 6: launch<6>(d, o, n_out, m, s); break;
+      case 7: launch<7>(d, o, n_out, m, s); break;
+      case 8: launch<8>(d, o, n_out, m, s); break;
+      default: return cudaErrorInvalidValue;
+    }
+    return cudaSuccess;
+  });
 }

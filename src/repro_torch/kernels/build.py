@@ -9,8 +9,12 @@ name carries a hash of the sources, headers and flags, so a stale library is
 never loaded.  Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed build raises.
 
-Each C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
-turns a non-zero code into an exception.
+Every kernel wrapper launches through :func:`launch`: the C entries are
+resolved once, at the first launch, and each later call is one dictionary
+lookup, the device index of the operands, PyTorch's current stream on that
+device and the ctypes call.  The C entry makes that device current only when
+it is not (``csrc/launch.cuh``) and returns ``cudaGetLastError()`` after the
+launch; :func:`check` turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu")
@@ -31,15 +37,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: name -> argtypes (pointers and the stream as void*, ints as int)
+# C entries: name -> argtypes (pointers and the stream as void*, ints as int).
+# Every *_launch entry ends with the device index and the stream.
 _PROTOTYPES = {
-    "limb_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "mont_fold_launch": (_P, _P, _I, _I, _I, _P),
-    "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "limb_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "limb_matmul_blocks": (_I, _I),
+    "mont_fold_launch": (_P, _P, _I, _I, _I, _I, _P),
+    "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
-_lib = None
+_entries = None     # name -> ctypes function, set once by entries()
+
+# PyTorch's current stream on a device, as the integer handle a C entry
+# takes.  The raw getter returns it without building a torch.cuda.Stream.
+current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
 @dataclasses.dataclass
@@ -117,18 +130,21 @@ def build() -> Path:
     return out
 
 
-def load():
-    """The loaded kernel library (built on first use), argtypes set."""
-    global _lib
+def entries() -> dict:
+    """The C entries of the kernel library (built on first use), argtypes
+    set: name -> ctypes function."""
+    global _entries
     with _lock:
-        if _lib is None:
+        if _entries is None:
             lib = ctypes.CDLL(str(build()))
+            fns = {}
             for name, argtypes in _PROTOTYPES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+                fns[name] = fn
+            _entries = fns
+    return _entries
 
 
 def check(code: int, what: str):
@@ -136,3 +152,16 @@ def check(code: int, what: str):
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{code}")
+
+
+def launch(name: str, like: torch.Tensor, *args):
+    """Call the C entry ``name`` with ``args``, then the device index of
+    ``like`` and PyTorch's current stream on that device; raise on a
+    non-zero ``cudaError_t``.  The caller has checked its operands; ``like``
+    is one of them, and a tensor that is not on a CUDA device raises here."""
+    index = like.get_device()
+    if index < 0:
+        raise ValueError(f"{name}: a CUDA launch needs CUDA tensors, got one "
+                         f"on {like.device}")
+    fn = (_entries or entries())[name]
+    check(fn(*args, index, current_stream(index)), name)

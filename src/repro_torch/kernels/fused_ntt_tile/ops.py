@@ -34,11 +34,10 @@ def fused_ntt_tile(a_u8: torch.Tensor, b3_s8: torch.Tensor, *, modulus: int,
     if a_u8.device != b3_s8.device:
         raise ValueError(f"operands on {a_u8.device} and {b3_s8.device}")
     COUNTER.calls += 1
-    if a_u8.device.type == "cpu":
+    if a_u8.is_cuda:
+        if not (a_u8.is_contiguous() and b3_s8.is_contiguous()):
+            raise ValueError("fused_ntt_tile needs contiguous row-major operands")
+        return fused_ntt_tile_cuda(a_u8, b3_s8, modulus, accum)
+    if a_u8.is_cpu:
         return fused_ntt_tile_ref(a_u8, b3_s8, modulus, accum).to(torch.int32)
-    if a_u8.device.type != "cuda":
-        raise ValueError(f"fused_ntt_tile runs on cuda or cpu, not "
-                         f"{a_u8.device}")
-    if not (a_u8.is_contiguous() and b3_s8.is_contiguous()):
-        raise ValueError("fused_ntt_tile needs contiguous row-major operands")
-    return fused_ntt_tile_cuda(a_u8, b3_s8, modulus, accum)
+    raise ValueError(f"fused_ntt_tile runs on cuda or cpu, not {a_u8.device}")

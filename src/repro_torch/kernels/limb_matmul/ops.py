@@ -27,10 +27,10 @@ def limb_matmul(a_u8: torch.Tensor, b_s8: torch.Tensor, *,
     if a_u8.device != b_s8.device:
         raise ValueError(f"operands on {a_u8.device} and {b_s8.device}")
     COUNTER.calls += 1
-    if a_u8.device.type == "cpu":
+    if a_u8.is_cuda:
+        if not (a_u8.is_contiguous() and b_s8.is_contiguous()):
+            raise ValueError("limb_matmul needs contiguous row-major operands")
+        return limb_matmul_cuda(a_u8, b_s8, accum)
+    if a_u8.is_cpu:
         return limb_matmul_ref(a_u8, b_s8, accum)
-    if a_u8.device.type != "cuda":
-        raise ValueError(f"limb_matmul runs on cuda or cpu, not {a_u8.device}")
-    if not (a_u8.is_contiguous() and b_s8.is_contiguous()):
-        raise ValueError("limb_matmul needs contiguous row-major operands")
-    return limb_matmul_cuda(a_u8, b_s8, accum)
+    raise ValueError(f"limb_matmul runs on cuda or cpu, not {a_u8.device}")

@@ -9,19 +9,14 @@ COUNTER = build.KernelCounter()
 
 
 def mont_fold_cuda(diags: torch.Tensor, modulus: int) -> torch.Tensor:
-    """Launch K2 on the current stream of ``diags``' device.  The caller
-    (``ops.mont_fold``) has checked dtype, n_diag, modulus and contiguity.
-    Residues leave in an int32 tensor: the kernel writes uint32 values < m
-    < 2**31, whose bits are the same."""
-    lib = build.load()
-    out = torch.empty(diags.shape[:-1], dtype=torch.int32, device=diags.device)
+    """Launch K2 on PyTorch's current stream of ``diags``' device.  The
+    caller (``ops.mont_fold``) has checked dtype, n_diag, modulus and
+    contiguity.  Residues leave in an int32 tensor: the kernel writes uint32
+    values < m < 2**31, whose bits are the same."""
+    out = diags.new_empty(diags.shape[:-1])
     n_out = out.numel()
-    if n_out == 0:
-        return out
-    with torch.cuda.device(diags.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mont_fold_launch(diags.data_ptr(), out.data_ptr(), n_out,
-                                    diags.shape[-1], modulus, stream)
-    build.check(code, "mont_fold")
-    COUNTER.launches += 1
+    if n_out:
+        build.launch("mont_fold_launch", diags, diags.data_ptr(),
+                     out.data_ptr(), n_out, diags.shape[-1], modulus)
+        COUNTER.launches += 1
     return out

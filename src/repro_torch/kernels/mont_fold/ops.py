@@ -24,13 +24,13 @@ def mont_fold(diags: torch.Tensor, modulus: int) -> torch.Tensor:
         raise ValueError(f"mont_fold needs 1..{MAX_DIAG} diagonals on the "
                          f"last axis, got shape {tuple(diags.shape)}")
     COUNTER.calls += 1
-    if diags.device.type == "cpu":
+    if diags.is_cuda:
+        if not diags.is_contiguous():
+            raise ValueError("mont_fold needs contiguous diagonals")
+        return mont_fold_cuda(diags, modulus)
+    if diags.is_cpu:
         return mont_fold_ref(diags, modulus).to(torch.int32)
-    if diags.device.type != "cuda":
-        raise ValueError(f"mont_fold runs on cuda or cpu, not {diags.device}")
-    if not diags.is_contiguous():
-        raise ValueError("mont_fold needs contiguous diagonals")
-    return mont_fold_cuda(diags, modulus)
+    raise ValueError(f"mont_fold runs on cuda or cpu, not {diags.device}")
 
 
 def mont_fold_window_fn():

@@ -1,0 +1,164 @@
+"""The launch path of the port's CUDA kernels, checked on the CPU.
+
+ctypes converts each argument by the prototype in ``build._PROTOTYPES``; a
+prototype that disagrees with its C signature shows only on the card, as a
+truncated pointer or a shifted argument.  So the C signatures in
+``csrc/*.cu`` are parsed here and held against the prototypes, and each
+``*_cuda`` wrapper's call is held against its prototype's arity.  The
+pure-Python part of :func:`build.launch` (device index, stream, the entry
+resolved once, the error check) runs with a stand-in entry.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_ntt_tile import kernel as k3
+from repro_torch.kernels.limb_matmul import kernel as k1
+from repro_torch.kernels.mont_fold import kernel as k2
+
+_C_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+def _c_signatures() -> dict:
+    """name -> [each parameter as written] for every ``extern "C"`` entry."""
+    sigs = {}
+    for path in sorted(build.CSRC.glob("*.cu")):
+        for name, params in _C_ENTRY.findall(path.read_text()):
+            sigs[name] = [" ".join(p.split()) for p in params.split(",")]
+    return sigs
+
+
+def _ctype(param: str):
+    """The ctypes type a C parameter needs: void* for every pointer, int for
+    an int.  Anything else has no mapping here and fails."""
+    if "*" in param:
+        return build.ctypes.c_void_p
+    assert param.split()[:-1] == ["int"], f"no ctypes mapping for {param!r}"
+    return build.ctypes.c_int
+
+
+def test_c_entries_and_prototypes_name_the_same_functions():
+    assert set(_c_signatures()) == set(build._PROTOTYPES)
+
+
+@pytest.mark.parametrize("name", sorted(build._PROTOTYPES))
+def test_prototype_matches_c_signature(name):
+    params = _c_signatures()[name]
+    assert tuple(build._PROTOTYPES[name]) == tuple(map(_ctype, params)), (
+        name, params)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in build._PROTOTYPES
+                                        if n.endswith("_launch")))
+def test_launch_entries_end_with_device_and_stream(name):
+    *_, device, stream = _c_signatures()[name]
+    assert (device, stream) == ("int device", "void* stream")
+
+
+class _Entry:
+    """Stands in for a ctypes function: records its arguments."""
+
+    def __init__(self, code=0):
+        self.code = code
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.code
+
+
+class _OnDevice:
+    """A tensor stand-in that reports CUDA device ``index``."""
+
+    def __init__(self, index):
+        self.index = index
+
+    def get_device(self):
+        return self.index
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """build.launch with a stand-in entry table and stream: loading the
+    library again would fail the test."""
+    entry = _Entry()
+    monkeypatch.setattr(build, "_entries", {"limb_matmul_launch": entry})
+    monkeypatch.setattr(build, "current_stream", lambda index: 4096 + index)
+
+    def no_reload():
+        raise AssertionError("the entries were resolved again")
+
+    monkeypatch.setattr(build, "entries", no_reload)
+    return entry
+
+
+def test_launch_appends_device_index_and_its_current_stream(stand_in):
+    build.launch("limb_matmul_launch", _OnDevice(1), 11, 22, 33)
+    build.launch("limb_matmul_launch", _OnDevice(0), 44)
+    assert stand_in.calls == [(11, 22, 33, 1, 4097), (44, 0, 4096)]
+
+
+def test_launch_raises_on_a_cuda_error(stand_in):
+    stand_in.code = 700          # cudaErrorIllegalAddress
+    with pytest.raises(RuntimeError, match="limb_matmul_launch.*700"):
+        build.launch("limb_matmul_launch", _OnDevice(0))
+
+
+def test_launch_refuses_a_cpu_tensor_before_any_entry(stand_in):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        build.launch("limb_matmul_launch", torch.zeros(1))
+    assert stand_in.calls == []
+
+
+def test_current_stream_is_torchs_raw_getter_when_present():
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    assert callable(build.current_stream)
+    if raw is not None:
+        assert build.current_stream is raw
+
+
+_RNG = np.random.default_rng(7)
+_A = torch.from_numpy(_RNG.integers(0, 256, (3, 20), dtype=np.uint8))
+_B = torch.from_numpy(_RNG.integers(-128, 128, (20, 10)).astype(np.int8))
+_B3 = _B.view(20, 2, 5)
+_D = torch.zeros((3, 4, 5), dtype=torch.int32)
+_WRAPPERS = {
+    "limb_matmul_launch": (k1, lambda: k1.limb_matmul_cuda(_A, _B, "int32_native")),
+    "mont_fold_launch": (k2, lambda: k2.mont_fold_cuda(_D, 17)),
+    "fused_ntt_tile_launch": (k3, lambda: k3.fused_ntt_tile_cuda(
+        _A, _B3, 17, "fp32_mantissa")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_wrapper_call_fills_its_prototype(name, monkeypatch):
+    """A wrapper passes its pointers and ints in the prototype's order;
+    build.launch adds the last two (device index, stream)."""
+    module, call = _WRAPPERS[name]
+    seen = []
+    monkeypatch.setattr(build, "launch",
+                        lambda entry, like, *args: seen.append((entry, args)))
+    before = module.COUNTER.launches
+    call()
+    (entry, args), = seen
+    assert entry == name
+    assert len(args) + 2 == len(build._PROTOTYPES[name])
+    for value, ctype in zip(args, build._PROTOTYPES[name]):
+        assert isinstance(value, int), (name, value)
+        if ctype is build.ctypes.c_int:
+            assert -2**31 <= value < 2**31
+    assert module.COUNTER.launches == before + 1
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_wrapper_on_cpu_tensors_raises_and_counts_nothing(name):
+    """The *_cuda wrappers launch or raise: a CPU tensor is refused, and no
+    launch is counted."""
+    module, call = _WRAPPERS[name]
+    before = module.COUNTER.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call()
+    assert module.COUNTER.launches == before
