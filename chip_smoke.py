@@ -14,20 +14,26 @@ Phases, each printing one JSON line:
    its plain version and the library call; and the kernel's
    own device time from torch.profiler) beside the plain version, the bound
    and, for K1, one library call (its time per call and on the device) and
-   K1's grid size; and the launch path of one K1 call split into the bare
-   ctypes launch, the ``*_cuda`` wrapper and the full ``ops`` call;
+   K1's grid size; the launch floor (an empty kernel's device time, read the
+   same way, and K2's device time over it); and the launch path of one K1
+   call split into the bare ctypes launch, the ``*_cuda`` wrapper and the
+   full ``ops`` call;
 3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
    int32, κ = 2) and a per-plane staged transform against an int64 numpy
    oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
 4. fused — ``fused_ntt_tile`` (K3) against its plain version, bit for bit,
-   at the fused path's shapes and at edge cases; the single-tenant fused
+   at the fused path's shapes and at edge cases, which must reach both of its
+   B-load variants, clusters of one and of more blocks and every n_diag from
+   1 to 8; the single-tenant fused
    transform (``repro_torch.kernels.fused_transform``, one K3 launch per
    staging pass) at full width: ML-DSA d = 256 at 128 rows (both
    accumulators) and Dilithium d = 2048 against the int64 oracle, BN254
    d = 256 (9 channels) against the K1 + K2 engine path and the bignum
-   oracle; then K3's times beside its bound, its plain version and the
-   unfused pair K1 + K2 on the same pass, and one fused transform beside one
-   staged transform;
+   oracle; then K3's times beside its bound (and, for fp32_mantissa, the
+   bound with the multiply-adds priced as FFMA), its launch geometry, its
+   plain version and the unfused pair K1 + K2 on the same pass, the two
+   timed in turns on both clocks, and one fused transform beside one staged
+   transform;
 5. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
    trace (λ = 4096 req/s for 0.25 s, 50:50 Dilithium:BN254, n_c = 8) and of
    the mixed eager/lazy configuration, every tenant row checked (Dilithium
@@ -36,6 +42,9 @@ Phases, each printing one JSON line:
    the replay does not take the fused path); then two more runs
    of the paper trace that split its wall time (host timers around the
    kernel wrappers and ``rns_to_field``; torch.profiler for device time).
+
+``python3 chip_smoke.py --k3`` runs the first phase, K3's checks and K3's
+times, and stops: a short call for a change to K3.
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
 code is not 0 and the last line is missing.  The last two lines are the
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -64,7 +74,7 @@ from repro_torch.core import rns as R                            # noqa: E402
 from repro_torch.core import workloads as WK                     # noqa: E402
 from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
-from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda  # noqa: E402
+from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref  # noqa: E402
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1, grid_blocks, limb_matmul_cuda  # noqa: E402
 from repro_torch.kernels.limb_matmul.ops import limb_matmul      # noqa: E402
@@ -106,16 +116,25 @@ K1_TIMED = [(8, 513, 1280), (8, 513, 2560), (8, 256, 448)]
 K2_TIMED = [(8, 256, 5, Q), (8, 512, 5, Q), (8, 64, 7, R.make_chain(9).base[0])]
 # K3 shapes (N, K, D, n_diag, m): the ML-DSA d = 256 passes under fp32
 # (K = 513 and 255, at the replay's 8 rows and at 128), BN254 d = 256 (La = 4,
-# seven diagonals, a channel modulus), a ragged small case, a modulus near
-# 2**31; int32-only: the single ML-DSA pass (K = 768, past the fp32 window),
-# the largest fused plan (Dilithium d = 2048, a 63 MB operand) and K past the
-# shared-memory chunk with eight diagonals.
+# seven diagonals, a channel modulus), a ragged small case whose 350-byte B
+# rows take the byte-load variant, a modulus near 2**31; then the edges of
+# the cluster design: K = 1 and 5 (one cluster rank, a partial ring slab), a
+# ragged column tile on the bulk variant (d = 70 at 8 diagonals, 560-byte
+# rows) and on the byte-load one (d = 33), N = 1 and 129, and n_diag 1, 2,
+# 3, 4 and 6 (5, 7 and 8 are above and below); int32-only: the single
+# ML-DSA pass (K = 768, past the fp32 window), the largest fused plan
+# (Dilithium d = 2048, a 63 MB operand), K = 6145 (no multiple of the slab
+# or of the cluster split) and K past the A chunk with eight diagonals.
 BN_M = R.make_chain(9).base[0]
 K3_SHAPES = [(8, 513, 256, 5, Q), (8, 255, 256, 5, Q), (128, 513, 256, 5, Q),
              (128, 512, 256, 7, BN_M), (3, 100, 70, 5, Q),
-             (16, 300, 64, 7, 2**31 - 1)]
+             (16, 300, 64, 7, 2**31 - 1),
+             (8, 1, 256, 5, Q), (8, 5, 256, 5, Q), (8, 513, 70, 8, Q),
+             (8, 300, 33, 5, Q), (1, 513, 256, 5, Q), (129, 513, 256, 7, BN_M),
+             (8, 513, 256, 1, Q), (16, 256, 96, 2, Q), (8, 513, 64, 3, Q),
+             (8, 300, 128, 4, BN_M), (8, 513, 256, 6, 2**31 - 1)]
 K3_INT32_ONLY = [(128, 768, 256, 5, Q), (8, 6144, 2048, 5, Q),
-                 (5, 4100, 96, 8, (1 << 31) - 99)]
+                 (8, 6145, 256, 5, Q), (5, 4100, 96, 8, (1 << 31) - 99)]
 K3_TIMED = [(128, 768, 256, 5, Q, "int32_native"),
             (128, 513, 256, 5, Q, "fp32_mantissa"),
             (128, 512, 256, 7, BN_M, "fp32_mantissa"),
@@ -229,9 +248,25 @@ def phase_env(dev):
            "device": torch.cuda.get_device_name(dev), "capability": list(cap),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "build_s": time.perf_counter() - t0,
-           "library": build.library_path().name}
+           "library": build.library_path().name,
+           "k3_resources": _k3_resources()}
     emit(env)
     return env
+
+
+def _k3_resources() -> list:
+    """[accumulator, n_diag, variant, registers, spill store and load bytes,
+    static shared memory] of every K3 instance, from the build's ptxas
+    report."""
+    rows = []
+    for r in build.ptxas_report("fused_ntt_tile_kernel"):
+        m = re.search(r"fused_ntt_tile_kernelI([fj])Li(\d)ELb([01])E", r["kernel"])
+        check(m is not None, f"unexpected K3 instance {r['kernel']}")
+        rows.append(["fp32" if m[1] == "f" else "int32", int(m[2]),
+                     "bulk" if m[3] == "1" else "bytes", r["registers"],
+                     r["spill_stores"], r["spill_loads"], r["smem"]])
+    check(len(rows) == 32, f"{len(rows)} K3 instances in the ptxas report")
+    return sorted(rows)
 
 
 def phase_kernels(dev, card: str):
@@ -351,8 +386,22 @@ def phase_kernels(dev, card: str):
             "library_ms": None,   # no single torch call computes the fold
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    # The launch floor: an empty kernel's device time, read the same way as
+    # K2's, and K2 against it.
+    empty = build.entries()["empty_launch"]
+
+    def empty_call():
+        build.check(empty(dev.index, build.current_stream(dev.index)),
+                    "empty_launch")
+
+    empty_ms = device_ms(empty_call, "empty_kernel", dev)
+    floor = {"device_ms": empty_ms,
+             "mont_fold_ratio": [None if empty_ms is None or t["kernel_device_ms"] is None
+                                 else t["kernel_device_ms"] / empty_ms
+                                 for t in k2_times]}
     out = {"phase": "kernels", "checked": n_checked, "max_abs_err": worst,
            "limb_matmul": k1_times, "mont_fold": k2_times,
+           "empty_launch": floor,
            "launch_path": _launch_path(dev, *k1_inputs(*K1_TIMED[0]),
                                        diags_in(-(2**24), 2**24, K2_TIMED[0][:3]),
                                        K2_TIMED[0][3])}
@@ -446,18 +495,35 @@ def _k3_bound(n: int, k: int, d: int, nd: int, bw: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_fused(dev, card: str):
-    """K3 against its plain version, the fused transform at full width with
-    K3's launches counted per call, and the times."""
-    rng = np.random.default_rng(SEED + 3)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    worst, n_checked = 0, 0
+def _mean_of_read(times: list):
+    """The mean of the profiler readings that saw the kernel (None when
+    none did: the profiler now and then drops a window's events)."""
+    read = [t for t in times if t is not None]
+    return statistics.mean(read) if read else None
 
-    def k3_inputs(n, k, d, nd):
-        a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
-        b3 = torch.as_tensor(rng.integers(-128, 128, (k, d, nd)).astype(np.int8),
-                             device=dev)
-        return a, b3
+
+def _k3_ffma_bound(n: int, k: int, d: int, nd: int, bw: float) -> float:
+    """``_k3_bound`` with the GEMM priced as the fp32_mantissa model runs
+    it: float32 FFMA on the CUDA cores, two operations per multiply-add at
+    the data sheet's non-tensor float32 rate."""
+    t_bytes = (n * k + k * d * nd + 4 * n * d) / bw * 1e3
+    t_ops = (2 * n * k * d * nd + n * d * nd * FOLD_OPS_PER_DIAG) / CUDA_CORE_OPS * 1e3
+    return max(t_bytes, t_ops)
+
+
+def k3_inputs(rng, dev, n, k, d, nd):
+    a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
+    b3 = torch.as_tensor(rng.integers(-128, 128, (k, d, nd)).astype(np.int8),
+                         device=dev)
+    return a, b3
+
+
+def k3_checks(dev, rng) -> dict:
+    """K3 against its plain version, bit for bit, at every K3 case: the
+    count of cases, the worst error, and which load variants, cluster sizes
+    and diagonal counts the cases reached (each is required)."""
+    worst, n_checked = 0, 0
+    variants, clusters, n_diags = {}, set(), set()
 
     def k3_check(a, b3, m, accum, what):
         nonlocal worst, n_checked
@@ -467,14 +533,27 @@ def phase_fused(dev, card: str):
         check(err == 0, f"fused_ntt_tile {accum} {what} m={m}: max |err| {err}")
         worst = max(worst, err)
         n_checked += 1
+        (n, k), (_, d, nd) = a.shape, b3.shape
+        grid = launch_grid(n, k, d, nd, b3)
+        variants[grid["variant"]] = variants.get(grid["variant"], 0) + 1
+        clusters.add(grid["cluster"])
+        n_diags.add(nd)
 
     for n, k, d, nd, m in K3_SHAPES:
-        a, b3 = k3_inputs(n, k, d, nd)
+        a, b3 = k3_inputs(rng, dev, n, k, d, nd)
         for accum in ("fp32_mantissa", "int32_native"):
             k3_check(a, b3, m, accum, (n, k, d, nd))
     for n, k, d, nd, m in K3_INT32_ONLY:
-        a, b3 = k3_inputs(n, k, d, nd)
+        a, b3 = k3_inputs(rng, dev, n, k, d, nd)
         k3_check(a, b3, m, "int32_native", (n, k, d, nd))
+    # B one byte off the 16-byte grid, though its rows are 1280 bytes: the
+    # byte-load variant at a main-path shape
+    a, b3 = k3_inputs(rng, dev, 8, 513, 256, 5)
+    b3_odd = torch.empty(b3.numel() + 1, dtype=torch.int8, device=dev)[1:].view_as(b3)
+    b3_odd.copy_(b3)
+    check(b3_odd.data_ptr() % 16 != 0 and b3_odd.is_contiguous(), "misaligned B")
+    for accum in ("fp32_mantissa", "int32_native"):
+        k3_check(a, b3_odd, Q, accum, "B at an odd address (8, 513, 256, 5)")
     # the extreme pass: every product 255·(-128), each diagonal at the fp32 edge
     a = torch.full((8, 513), 255, dtype=torch.uint8, device=dev)
     b3 = torch.full((513, 256, 5), -128, dtype=torch.int8, device=dev)
@@ -487,6 +566,66 @@ def phase_fused(dev, card: str):
     b3 = torch.full((70000, 32, 5), 127, dtype=torch.int8, device=dev)
     for m in (Q, (1 << 31) - 99, 2**31 - 1):
         k3_check(a, b3, m, "int32_native", "int32 wrap (2, 70000, 32, 5)")
+    check(set(variants) == {"bulk", "bytes"}, f"K3 variants reached: {variants}")
+    check(1 in clusters and max(clusters) > 1, f"K3 clusters reached: {clusters}")
+    check(n_diags == set(range(1, 9)), f"K3 n_diag reached: {n_diags}")
+    return {"checked": n_checked, "max_abs_err": worst, "variants": variants,
+            "clusters": sorted(clusters)}
+
+
+def k3_timings(dev, card: str, rng) -> list:
+    """K3 at each timed shape beside its bound, its plain version and the
+    unfused pair K1 + K2 on the same pass, with its launch geometry."""
+    bw = bandwidth(card)
+    k3_times = []
+    for n, k, d, nd, m, accum in K3_TIMED:
+        a, b3 = k3_inputs(rng, dev, n, k, d, nd)
+        b2 = b3.view(k, d * nd)
+
+        def fused():
+            return fused_ntt_tile_cuda(a, b3, m, accum)
+
+        def pair():
+            return mont_fold_cuda(limb_matmul_cuda(a, b2, accum).view(n, d, nd), m)
+
+        def pair_device_ms():
+            times = [device_ms(pair, name, dev)
+                     for name in ("limb_matmul_kernel", "mont_fold_kernel")]
+            return None if None in times else sum(times)
+
+        check(torch.equal(fused(), pair()), f"K3 != K1 + K2 at {(n, k, d, nd)}")
+        bound, by = _k3_bound(n, k, d, nd, bw)
+        # K3 and the pair are compared, so both clocks take them in turns:
+        # events fused, pair, ...; the profiler fused, pair, pair, fused.
+        ms = median_ms_turns({"fused": fused, "pair": pair}, dev)
+        dev_turns = [device_ms(fused, "fused_ntt_tile_kernel", dev),
+                     pair_device_ms(), pair_device_ms(),
+                     device_ms(fused, "fused_ntt_tile_kernel", dev)]
+        fused_dev = _mean_of_read(dev_turns[::3])
+        pair_dev = _mean_of_read(dev_turns[1:3])
+        k3_times.append({
+            "shape": [n, k, d, nd], "accum": accum, "modulus": m,
+            **launch_grid(n, k, d, nd, b3),
+            "kernel_ms": ms["fused"],
+            "kernel_device_ms": fused_dev,
+            "plain_ms": median_ms(lambda: fused_ntt_tile_ref(a, b3, m, accum), dev),
+            # no single torch call computes the GEMM and the fold together
+            "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "ffma_bound_ms": (_k3_ffma_bound(n, k, d, nd, bw)
+                              if accum == "fp32_mantissa" else None),
+            "unfused_ms": ms["pair"],
+            "unfused_device_ms": pair_dev,
+            "device_turns_ms": dev_turns})
+    return k3_times
+
+
+def phase_fused(dev, card: str):
+    """K3 against its plain version, the fused transform at full width with
+    K3's launches counted per call, and the times."""
+    rng = np.random.default_rng(SEED + 3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    checks = k3_checks(dev, rng)
 
     # The fused path at full width, K3's launches counted in each call.
     launches, transforms = 0, []
@@ -561,32 +700,7 @@ def phase_fused(dev, card: str):
                        "launches": bn_launches,
                        "against": "K1 + K2 engine, e2e, bignum oracle (8 rows)"})
 
-    bw = bandwidth(card)
-    k3_times = []
-    for n, k, d, nd, m, accum in K3_TIMED:
-        a, b3 = k3_inputs(n, k, d, nd)
-        b2 = b3.view(k, d * nd)
-
-        def fused():
-            return fused_ntt_tile_cuda(a, b3, m, accum)
-
-        def pair():
-            return mont_fold_cuda(limb_matmul_cuda(a, b2, accum).view(n, d, nd), m)
-
-        check(torch.equal(fused(), pair()), f"K3 != K1 + K2 at {(n, k, d, nd)}")
-        bound, by = _k3_bound(n, k, d, nd, bw)
-        pair_dev = [device_ms(pair, name, dev)
-                    for name in ("limb_matmul_kernel", "mont_fold_kernel")]
-        k3_times.append({
-            "shape": [n, k, d, nd], "accum": accum, "modulus": m,
-            "kernel_ms": median_ms(fused, dev),
-            "kernel_device_ms": device_ms(fused, "fused_ntt_tile_kernel", dev),
-            "plain_ms": median_ms(lambda: fused_ntt_tile_ref(a, b3, m, accum), dev),
-            # no single torch call computes the GEMM and the fold together
-            "library_ms": None,
-            "bound_ms": bound, "bound_by": by,
-            "unfused_ms": median_ms(pair, dev),
-            "unfused_device_ms": None if None in pair_dev else sum(pair_dev)})
+    k3_times = k3_timings(dev, card, rng)
     transform_ms = {}
     for accum, (plan, planes) in mldsa.items():
         transform_ms[accum] = {
@@ -595,8 +709,7 @@ def phase_fused(dev, card: str):
                                   dev, runs=20, per_run=5),
             "staged_ms": median_ms(lambda: G.staged_transform(a_mldsa, plan, planes=planes),
                                    dev, runs=20, per_run=5)}
-    out = {"phase": "fused", "checked": n_checked, "max_abs_err": worst,
-           "transforms": transforms, "launches": launches,
+    out = {"phase": "fused", **checks, "transforms": transforms, "launches": launches,
            "fused_ntt_tile": k3_times, "transform_ms_128_rows": transform_ms}
     emit(out)
     return out
@@ -795,6 +908,12 @@ def main():
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     env = phase_env(dev)
+    if sys.argv[1:] == ["--k3"]:
+        # a short call: the build, K3's resources, checks and times, no more
+        rng = np.random.default_rng(SEED + 3)
+        emit({"phase": "k3_checks", **k3_checks(dev, rng)})
+        emit({"phase": "k3_timings", "fused_ntt_tile": k3_timings(dev, env["device"], rng)})
+        return
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
     fused = phase_fused(dev, env["device"])

@@ -4,7 +4,8 @@ Each ``.cu`` file has a plain C interface; the ``.cuh`` headers beside them
 hold device code that two kernels share.  At first use every source is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
 the objects are linked into one shared library under ``build/repro_torch/``
-at the repository root, and the library is loaded with ``ctypes``.  The file
+at the repository root, and the library is loaded with ``ctypes``.  The
+compiler's resource report (``-Xptxas -v``) is kept beside the library.  The file
 name carries a hash of the sources, headers and flags, so a stale library is
 never loaded.  Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed build raises.
@@ -22,6 +23,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,9 +34,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu")
+SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu", "empty.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# Compile-only flags: each kernel's registers, spills and shared memory go
+# to the build's report (ptxas_report).
+REPORT_FLAGS = ("-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entries: name -> argtypes (pointers and the stream as void*, ints as int).
@@ -44,6 +49,8 @@ _PROTOTYPES = {
     "limb_matmul_blocks": (_I, _I),
     "mont_fold_launch": (_P, _P, _I, _I, _I, _I, _P),
     "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "fused_ntt_tile_grid": (_I, _I, _I, _I, _P, _P),
+    "empty_launch": (_I, _P),
 }
 
 _lock = threading.Lock()
@@ -85,11 +92,40 @@ def headers() -> tuple[str, ...]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + REPORT_FLAGS).encode())
     for name in SOURCES + headers():
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def ptxas_log_path() -> Path:
+    """The compiler's resource report (``-Xptxas -v``) of the library."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
+def ptxas_report(pattern: str = "") -> list[dict]:
+    """Registers, spill bytes and static shared memory of every kernel whose
+    mangled name contains ``pattern``, parsed from the build's ``-Xptxas
+    -v`` report (builds the library on first use)."""
+    build()
+    kernels, cur = [], None
+    for line in ptxas_log_path().read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = {"kernel": m.group(1), "registers": None,
+                   "spill_stores": None, "spill_loads": None, "smem": 0}
+            if pattern in cur["kernel"]:
+                kernels.append(cur)
+        elif cur is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            line):
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        elif m := re.search(r"Used (\d+) registers", line):
+            cur["registers"] = int(m.group(1))
+            if s := re.search(r"(\d+) bytes smem", line):
+                cur["smem"] = int(s.group(1))
+    return kernels
 
 
 def _run(cmd):
@@ -112,13 +148,15 @@ def build() -> Path:
         procs = []
         for name in SOURCES:
             obj = Path(tmp) / (Path(name).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, *REPORT_FLAGS, "-c", str(CSRC / name),
+                   "-o", str(obj)]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        errors = []
+        errors, logs = [], []
         for cmd, _, p in procs:
             log, _ = p.communicate()
+            logs.append(log)
             if p.returncode != 0:
                 errors.append(f"{' '.join(cmd)} failed ({p.returncode}):\n{log}")
         if errors:
@@ -126,6 +164,9 @@ def build() -> Path:
         tmp_lib = Path(tmp) / out.name
         _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
               *(str(obj) for _, obj, _ in procs)])
+        report = Path(tmp) / ptxas_log_path().name
+        report.write_text("".join(logs))
+        os.replace(report, ptxas_log_path())
         os.replace(tmp_lib, out)     # atomic: a reader never sees half a file
     return out
 

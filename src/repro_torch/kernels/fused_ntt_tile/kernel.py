@@ -1,6 +1,8 @@
 """ctypes binding of the K3 CUDA kernel ``fused_ntt_tile_launch``."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -23,3 +25,16 @@ def fused_ntt_tile_cuda(a_u8: torch.Tensor, b3_s8: torch.Tensor, modulus: int,
                      modulus, accum == "fp32_mantissa")
         COUNTER.launches += 1
     return out
+
+
+def launch_grid(n: int, k: int, d: int, n_diag: int, b3_s8: torch.Tensor) -> dict:
+    """K3's launch geometry for an (n, k, d, n_diag) call on ``b3_s8``, as
+    the kernel computes it (builds the library on first use): blocks in the
+    grid, the cluster size (blocks splitting K for one output tile) and the
+    variant that loads B (``bulk`` copies or ``bytes``)."""
+    out = (ctypes.c_int * 3)()
+    build.check(build.entries()["fused_ntt_tile_grid"](
+        n, k, d, n_diag, b3_s8.data_ptr(), ctypes.addressof(out)),
+        "fused_ntt_tile_grid")
+    return {"blocks": out[0], "cluster": out[1],
+            "variant": "bulk" if out[2] else "bytes"}

@@ -21,12 +21,14 @@ from repro.kernels import fused_ntt_tile as j_fused_ntt_tile
 from repro.kernels import fused_operand_3d as j_fused_operand_3d
 from repro.kernels import pallas_fused_transform
 from repro_torch.core import convert
+from repro_torch.core import field as TF
 from repro_torch.core import limb_gemm as TG
 from repro_torch.core import rns as TR
 from repro_torch.core import workloads as TWK
 from repro_torch.kernels import (build, fused_ntt_tile, fused_operand_3d,
                                  fused_transform)
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3
+from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref
 
 Q = JF.DILITHIUM_Q
 BN_M = JR.make_chain(9).moduli[0]
@@ -45,6 +47,12 @@ def _operands(n, k, d, n_diag):
     (4, 256, 64, 7, BN_M, "fp32_mantissa"),    # a BN254 channel pass
     (4, 256, 64, 7, BN_M, "int32_native"),
     (3, 100, 70, 5, Q, "int32_native"),        # ragged N, K and D
+    (8, 1, 64, 5, Q, "fp32_mantissa"),         # K = 1
+    (8, 1, 64, 5, Q, "int32_native"),
+    (4, 200, 40, 1, Q, "fp32_mantissa"),       # one diagonal
+    (4, 200, 40, 1, Q, "int32_native"),
+    (4, 200, 40, 8, (1 << 31) - 99, "fp32_mantissa"),   # eight diagonals
+    (4, 200, 40, 8, (1 << 31) - 99, "int32_native"),
 ])
 def test_fused_ntt_tile_matches_pallas(n, k, d, n_diag, m, accum):
     a, b3 = _operands(n, k, d, n_diag)
@@ -66,6 +74,76 @@ def test_fused_ntt_tile_folds_wrapped_int32_diagonals():
     assert wrapped < 0
     got = fused_ntt_tile(a, b3, modulus=m)
     assert got.tolist() == [[wrapped % m, wrapped % m]]
+
+
+def _split_k_fold(a, b3, modulus, accum, cluster):
+    """The CUDA kernel's order of summation, in plain torch.  Rank r of the
+    cluster sums K slice r (ceil(K / cluster) k each) in 4 k groups: under
+    fp32_mantissa float32 partials of slice-local k ≡ g mod 4, under
+    int32_native partials of k quads (slice-local k // 4 ≡ g mod 4) summed by
+    dp4a, wrapping in int32 (uint32 carried in int64).  A block adds its
+    groups in order, the leader the ranks in order, in the accumulator's
+    type; then the cast to int32 and the fold."""
+    n, k = a.shape
+    _, d, n_diag = b3.shape
+    b2 = b3.reshape(k, d * n_diag)
+    slice_ = -(-k // cluster)
+    fp32 = accum == "fp32_mantissa"
+    total = None
+    for r in range(cluster):
+        lo, hi = min(k, r * slice_), min(k, (r + 1) * slice_)
+        local = torch.arange(hi - lo)
+        block = None
+        for g in range(4):
+            ks = lo + local[(local % 4 == g) if fp32 else (local // 4 % 4 == g)]
+            if fp32:
+                part = a[:, ks].to(torch.float32) @ b2[ks].to(torch.float32)
+            else:
+                part = (a[:, ks].to(torch.int64) @ b2[ks].to(torch.int64)) % 2**32
+            block = part if block is None else block + part
+            if not fp32:
+                block %= 2**32
+        total = block if total is None else total + block
+        if not fp32:
+            total %= 2**32
+    if fp32:
+        diags = total.to(torch.int32)
+    else:
+        diags = (total - (total >= 2**31).to(torch.int64) * 2**32).to(torch.int32)
+    return TF.fold_diagonals(diags.reshape(n, d, n_diag), modulus)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("accum", ["fp32_mantissa", "int32_native"])
+@pytest.mark.parametrize("case", ["random", "window_edge", "ragged_k"])
+def test_split_k_order_matches_plain_version(case, accum, cluster):
+    """Inside the 2**24 window the kernel's split-K order (slices over the
+    cluster, k groups in a block) gives the plain version's bits."""
+    if case == "random":
+        a, b3 = map(torch.from_numpy, _operands(8, 513, 32, 5))
+    elif case == "ragged_k":
+        a, b3 = map(torch.from_numpy, _operands(3, 37, 10, 7))
+    else:   # every product 255·(-128): each diagonal at the fp32 edge
+        a = torch.full((8, 513), 255, dtype=torch.uint8)
+        b3 = torch.full((513, 16, 5), -128, dtype=torch.int8)
+    for m in (Q, 2**31 - 1):
+        want = fused_ntt_tile_ref(a, b3, m, accum)
+        assert torch.equal(_split_k_fold(a, b3, m, accum, cluster), want)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_split_k_order_wraps_like_int32(cluster):
+    """An int32 sum that leaves int32: the split sum wraps to the same
+    negative diagonal as the plain version, whatever the split."""
+    k = 70000
+    a = torch.full((2, k), 255, dtype=torch.uint8)
+    b3 = torch.full((k, 4, 1), 127, dtype=torch.int8)
+    wrapped = (255 * 127 * k + 2**31) % 2**32 - 2**31
+    assert wrapped < 0
+    for m in (Q, (1 << 31) - 99):
+        want = fused_ntt_tile_ref(a, b3, m, "int32_native")
+        assert int(want[0, 0]) == wrapped % m
+        assert torch.equal(_split_k_fold(a, b3, m, "int32_native", cluster), want)
 
 
 def _plans(d, accum):

@@ -162,3 +162,46 @@ def test_wrapper_on_cpu_tensors_raises_and_counts_nothing(name):
     with pytest.raises(ValueError, match="CUDA tensors"):
         call()
     assert module.COUNTER.launches == before
+
+
+def test_launch_grid_reads_the_c_entry_through_its_out_pointer(monkeypatch):
+    """K3's launch geometry comes from ``fused_ntt_tile_grid``, which writes
+    blocks, cluster size and variant through its last pointer."""
+    seen = []
+
+    def grid_entry(n, k, d, n_diag, b3_ptr, out_ptr):
+        seen.append((n, k, d, n_diag, b3_ptr))
+        out = (build.ctypes.c_int * 3).from_address(out_ptr)
+        out[0], out[1], out[2] = 256, 4, 1
+        return 0
+
+    monkeypatch.setattr(build, "entries",
+                        lambda: {"fused_ntt_tile_grid": grid_entry})
+    got = k3.launch_grid(8, 6144, 2048, 5, _B3)
+    assert got == {"blocks": 256, "cluster": 4, "variant": "bulk"}
+    assert seen == [(8, 6144, 2048, 5, _B3.data_ptr())]
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121fused_ntt_tile_kernelIjLi5ELb1EEEvPKhPKaPiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121fused_ntt_tile_kernelIjLi5ELb1EEEvPKhPKaPiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 616 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116mont_fold_kernelILi5EEEvPKiPjij' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116mont_fold_kernelILi5EEEvPKiPjij
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 24 registers, 1024 bytes smem, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_parses_each_kernel(tmp_path, monkeypatch):
+    log = tmp_path / "lib.ptxas.txt"
+    log.write_text(_PTXAS_LOG)
+    monkeypatch.setattr(build, "build", lambda: None)
+    monkeypatch.setattr(build, "ptxas_log_path", lambda: log)
+    k3_rows = build.ptxas_report("fused_ntt_tile_kernel")
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"], r["smem"])
+            for r in k3_rows] == [(80, 0, 0, 0)]
+    everything = build.ptxas_report()
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"], r["smem"])
+            for r in everything] == [(80, 0, 0, 0), (24, 4, 12, 1024)]
