@@ -77,35 +77,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// The ring and grid sizes.  Each can be overridden at compile time (-D) for
-// the parameter sweep of kernels/fused_ntt_tile/sweep.py; the library is
-// built with the defaults.
-#ifndef K3_KT
-#define K3_KT 64
-#endif
-#ifndef K3_STAGES
-#define K3_STAGES 4
-#endif
-#ifndef K3_TARGET_BLOCKS
-#define K3_TARGET_BLOCKS 66
-#endif
-#ifndef K3_MAX_SLICE
-#define K3_MAX_SLICE 2048
-#endif
-#ifndef K3_MATH
-#define K3_MATH 1
-#endif
-#ifndef K3_STREAM
-#define K3_STREAM 1
-#endif
-
 constexpr int ROWS = 8;          // output rows per block
 constexpr int CC = 32;           // coefficients per block
-constexpr int KT = K3_KT;        // B rows per ring slab
-constexpr int STAGES = K3_STAGES;   // slabs in the ring
+constexpr int KT = 64;           // B rows per ring slab
+constexpr int STAGES = 4;        // slabs in the ring
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
-constexpr int TARGET_BLOCKS = K3_TARGET_BLOCKS;   // half the SMs of an H100
-constexpr int MAX_SLICE = K3_MAX_SLICE;   // K per cluster rank, if c allows
+constexpr int MAX_SLICE = 2048;  // K per cluster rank, if c allows
 constexpr int BARS = 128;        // bytes for the 2·STAGES mbarriers
 
 // The block's work split for one accumulator model.  A consumer thread owns
@@ -142,19 +119,34 @@ struct Plan {
   int ctiles, rtiles, cluster, slice;
 };
 
+// Half the SMs of `device`: the grid the cluster rule aims to fill (66 on an
+// H100 SXM).  Read once per device.
+cudaError_t target_blocks(int device, int* target) {
+  static int cached[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (cached[device] == 0) {
+    int sms = 0;
+    const cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    cached[device] = sms / 2 > 0 ? sms / 2 : 1;
+  }
+  *target = cached[device];
+  return cudaSuccess;
+}
+
 // The cluster size c doubles (up to 8) while the grid has fewer blocks than
-// half the SMs or a rank's K slice is longer than MAX_SLICE, as long as
-// every rank keeps two slabs.  Splitting costs the cluster reduction: at 128
-// tiles (128 rows, d = 256) c = 2 was 4–23 % slower than c = 1, and c = 4
-// twice as slow (sweep.py, NVIDIA H100 80GB HBM3, 700 W).
-Plan plan_of(int n, int k, int d) {
+// `target` or a rank's K slice is longer than MAX_SLICE, as long as every
+// rank keeps two slabs.  Splitting costs the cluster reduction, so 128
+// tiles (128 rows, d = 256) are not split (PERF.md).
+Plan plan_of(int n, int k, int d, int target) {
   Plan p;
   p.ctiles = (d + CC - 1) / CC;
   p.rtiles = (n + ROWS - 1) / ROWS;
   const long tiles = (long)p.ctiles * p.rtiles;
   int c = 1;
   while (c < MAX_CLUSTER &&
-         (tiles * c < TARGET_BLOCKS || (k + c - 1) / c > MAX_SLICE) &&
+         (tiles * c < target || (k + c - 1) / c > MAX_SLICE) &&
          k >= 4 * c * KT) {
     c *= 2;
   }
@@ -357,7 +349,7 @@ fused_ntt_tile_kernel(const uint8_t* __restrict__ a,
       }
       const int k0 = k_begin + j * KT;
       if (BULK) {
-        if (lane == 0 && K3_STREAM) {
+        if (lane == 0) {
           mbar_arrive_expect_tx(&full[s], box_rows * pitch);
           tensor_load(slab, &b_map, col0 * NDIAG / 4, k0, &full[s]);
         } else {
@@ -386,28 +378,26 @@ fused_ntt_tile_kernel(const uint8_t* __restrict__ a,
       const int s = j % STAGES;
       mbar_wait(&full[s], (j / STAGES) & 1);
       const int8_t* slab = ring + s * T::SLAB;
-      if (K3_MATH) {
-        if constexpr (INT32) {
-          const uint32_t* sa = reinterpret_cast<const uint32_t*>(slab + KT * T::W);
+      if constexpr (INT32) {
+        const uint32_t* sa = reinterpret_cast<const uint32_t*>(slab + KT * T::W);
 #pragma unroll
-          for (int i = 0; i < KT / 4 / T::KG; ++i) {
-            const int q = g + i * T::KG;
-            uint32_t wq[4];
+        for (int i = 0; i < KT / 4 / T::KG; ++i) {
+          const int q = g + i * T::KG;
+          uint32_t wq[4];
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              wq[b] = *reinterpret_cast<const uint32_t*>(
-                  slab + (4 * q + b) * pitch + TC * w);
-            }
-            mac_quad(acc, sa + q * ROWS, wq);
+          for (int b = 0; b < 4; ++b) {
+            wq[b] = *reinterpret_cast<const uint32_t*>(
+                slab + (4 * q + b) * pitch + TC * w);
           }
-        } else {
-          const float* sa = reinterpret_cast<const float*>(slab + KT * T::W);
+          mac_quad(acc, sa + q * ROWS, wq);
+        }
+      } else {
+        const float* sa = reinterpret_cast<const float*>(slab + KT * T::W);
 #pragma unroll
-          for (int i = 0; i < KT / T::KG; ++i) {
-            const int kk = g + i * T::KG;
-            mac_k(acc, sa + kk * ROWS,
-                  *reinterpret_cast<const uint32_t*>(slab + kk * pitch + TC * w));
-          }
+        for (int i = 0; i < KT / T::KG; ++i) {
+          const int kk = g + i * T::KG;
+          mac_k(acc, sa + kk * ROWS,
+                *reinterpret_cast<const uint32_t*>(slab + kk * pitch + TC * w));
         }
       }
       mbar_arrive(&empty[s]);
@@ -567,8 +557,12 @@ cudaError_t launch_kernel(const uint8_t* a, const int8_t* b3, int32_t* out,
 
 template <int NDIAG>
 cudaError_t launch(const uint8_t* a, const int8_t* b3, int32_t* out, int n,
-                   int k, int d, uint32_t m, int fp32, cudaStream_t s) {
-  const Plan p = plan_of(n, k, d);
+                   int k, int d, uint32_t m, int fp32, int device,
+                   cudaStream_t s) {
+  int target = 0;
+  const cudaError_t err = target_blocks(device, &target);
+  if (err != cudaSuccess) return err;
+  const Plan p = plan_of(n, k, d, target);
   const bool bulk = bulk_ok(d, NDIAG, b3);
   if (fp32) {
     return bulk ? launch_kernel<float, NDIAG, true>(a, b3, out, n, k, d, m, p, s)
@@ -580,13 +574,16 @@ cudaError_t launch(const uint8_t* a, const int8_t* b3, int32_t* out, int n,
 
 }  // namespace
 
-// The launch geometry of one call at (n, k, d, n_diag) on the operand b3,
-// as the launch computes it: out[0] blocks, out[1] the cluster size (blocks
-// splitting K for one tile), out[2] 1 for the bulk-copy variant and 0 for
-// the byte-load one.
+// The launch geometry of one call at (n, k, d, n_diag) on the operand b3 on
+// `device`, as the launch computes it: out[0] blocks, out[1] the cluster
+// size (blocks splitting K for one tile), out[2] 1 for the bulk-copy variant
+// and 0 for the byte-load one.
 extern "C" int fused_ntt_tile_grid(int n, int k, int d, int n_diag,
-                                   const void* b3, void* out) {
-  const Plan p = plan_of(n, k, d);
+                                   const void* b3, int device, void* out) {
+  int target = 0;
+  const cudaError_t err = target_blocks(device, &target);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = plan_of(n, k, d, target);
   int* o = static_cast<int*>(out);
   o[0] = p.ctiles * p.cluster * p.rtiles;
   o[1] = p.cluster;
@@ -608,14 +605,14 @@ extern "C" int fused_ntt_tile_launch(const void* a, const void* b3, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return launch_on(device, [&]() {
     switch (n_diag) {
-      case 1: return launch<1>(pa, pb, po, n, k, d, m, fp32, s);
-      case 2: return launch<2>(pa, pb, po, n, k, d, m, fp32, s);
-      case 3: return launch<3>(pa, pb, po, n, k, d, m, fp32, s);
-      case 4: return launch<4>(pa, pb, po, n, k, d, m, fp32, s);
-      case 5: return launch<5>(pa, pb, po, n, k, d, m, fp32, s);
-      case 6: return launch<6>(pa, pb, po, n, k, d, m, fp32, s);
-      case 7: return launch<7>(pa, pb, po, n, k, d, m, fp32, s);
-      case 8: return launch<8>(pa, pb, po, n, k, d, m, fp32, s);
+      case 1: return launch<1>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 2: return launch<2>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 3: return launch<3>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 4: return launch<4>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 5: return launch<5>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 6: return launch<6>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 7: return launch<7>(pa, pb, po, n, k, d, m, fp32, device, s);
+      case 8: return launch<8>(pa, pb, po, n, k, d, m, fp32, device, s);
       default: return cudaErrorInvalidValue;
     }
   });

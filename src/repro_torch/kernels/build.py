@@ -49,7 +49,7 @@ _PROTOTYPES = {
     "limb_matmul_blocks": (_I, _I),
     "mont_fold_launch": (_P, _P, _I, _I, _I, _I, _P),
     "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "fused_ntt_tile_grid": (_I, _I, _I, _I, _P, _P),
+    "fused_ntt_tile_grid": (_I, _I, _I, _I, _P, _I, _P),
     "empty_launch": (_I, _P),
 }
 

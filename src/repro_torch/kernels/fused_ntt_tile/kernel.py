@@ -29,12 +29,17 @@ def fused_ntt_tile_cuda(a_u8: torch.Tensor, b3_s8: torch.Tensor, modulus: int,
 
 def launch_grid(n: int, k: int, d: int, n_diag: int, b3_s8: torch.Tensor) -> dict:
     """K3's launch geometry for an (n, k, d, n_diag) call on ``b3_s8``, as
-    the kernel computes it (builds the library on first use): blocks in the
-    grid, the cluster size (blocks splitting K for one output tile) and the
-    variant that loads B (``bulk`` copies or ``bytes``)."""
+    the kernel computes it on the card that holds ``b3_s8`` (builds the
+    library on first use): blocks in the grid, the cluster size (blocks
+    splitting K for one output tile) and the variant that loads B (``bulk``
+    copies or ``bytes``)."""
+    index = b3_s8.get_device()
+    if index < 0:
+        raise ValueError("fused_ntt_tile_grid: the launch geometry needs a "
+                         f"CUDA tensor, got one on {b3_s8.device}")
     out = (ctypes.c_int * 3)()
     build.check(build.entries()["fused_ntt_tile_grid"](
-        n, k, d, n_diag, b3_s8.data_ptr(), ctypes.addressof(out)),
+        n, k, d, n_diag, b3_s8.data_ptr(), index, ctypes.addressof(out)),
         "fused_ntt_tile_grid")
     return {"blocks": out[0], "cluster": out[1],
             "variant": "bulk" if out[2] else "bytes"}

@@ -76,14 +76,29 @@ def test_fused_ntt_tile_folds_wrapped_int32_diagonals():
     assert got.tolist() == [[wrapped % m, wrapped % m]]
 
 
+def test_fused_ntt_tile_matches_pallas_at_the_window_edge():
+    """Every product 255·(-128) and K = 513: each diagonal sits at the edge
+    of the fp32 model's 2**24 window, in both models."""
+    a = np.full((8, 513), 255, dtype=np.uint8)
+    b3 = np.full((513, 16, 5), -128, dtype=np.int8)
+    for accum in ("fp32_mantissa", "int32_native"):
+        want = np.asarray(j_fused_ntt_tile(jnp.asarray(a), jnp.asarray(b3),
+                                           modulus=Q, accum=accum))
+        got = fused_ntt_tile(torch.from_numpy(a), torch.from_numpy(b3),
+                             modulus=Q, accum=accum)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
 def _split_k_fold(a, b3, modulus, accum, cluster):
     """The CUDA kernel's order of summation, in plain torch.  Rank r of the
-    cluster sums K slice r (ceil(K / cluster) k each) in 4 k groups: under
-    fp32_mantissa float32 partials of slice-local k ≡ g mod 4, under
-    int32_native partials of k quads (slice-local k // 4 ≡ g mod 4) summed by
-    dp4a, wrapping in int32 (uint32 carried in int64).  A block adds its
-    groups in order, the leader the ranks in order, in the accumulator's
-    type; then the cast to int32 and the fold."""
+    cluster sums K slice r (ceil(K / cluster) k each) in 4 k groups.
+    fp32_mantissa: group g runs over the slice-local k ≡ g mod 4 in order, a
+    float32 multiply-add a step (each product of a u8 and an s8 is exact in
+    float32, so a multiply then an add is the FFMA's result).  int32_native:
+    group g takes the k quads with slice-local k // 4 ≡ g mod 4, summed as
+    dp4a does, wrapping in int32 (uint32 carried in int64).  A block adds
+    its groups in order and every output adds the ranks in order, in the
+    accumulator's type; then the cast to int32 and the fold."""
     n, k = a.shape
     _, d, n_diag = b3.shape
     b2 = b3.reshape(k, d * n_diag)
@@ -97,7 +112,10 @@ def _split_k_fold(a, b3, modulus, accum, cluster):
         for g in range(4):
             ks = lo + local[(local % 4 == g) if fp32 else (local // 4 % 4 == g)]
             if fp32:
-                part = a[:, ks].to(torch.float32) @ b2[ks].to(torch.float32)
+                part = torch.zeros((n, d * n_diag), dtype=torch.float32)
+                for kk in ks.tolist():
+                    part = part + (a[:, kk, None].to(torch.float32)
+                                   * b2[kk].to(torch.float32))
             else:
                 part = (a[:, ks].to(torch.int64) @ b2[ks].to(torch.int64)) % 2**32
             block = part if block is None else block + part
@@ -113,37 +131,31 @@ def _split_k_fold(a, b3, modulus, accum, cluster):
     return TF.fold_diagonals(diags.reshape(n, d, n_diag), modulus)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("accum", ["fp32_mantissa", "int32_native"])
-@pytest.mark.parametrize("case", ["random", "window_edge", "ragged_k"])
-def test_split_k_order_matches_plain_version(case, accum, cluster):
-    """Inside the 2**24 window the kernel's split-K order (slices over the
-    cluster, k groups in a block) gives the plain version's bits."""
-    if case == "random":
-        a, b3 = map(torch.from_numpy, _operands(8, 513, 32, 5))
-    elif case == "ragged_k":
-        a, b3 = map(torch.from_numpy, _operands(3, 37, 10, 7))
-    else:   # every product 255·(-128): each diagonal at the fp32 edge
-        a = torch.full((8, 513), 255, dtype=torch.uint8)
-        b3 = torch.full((513, 16, 5), -128, dtype=torch.int8)
-    for m in (Q, 2**31 - 1):
-        want = fused_ntt_tile_ref(a, b3, m, accum)
-        assert torch.equal(_split_k_fold(a, b3, m, accum, cluster), want)
-
-
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-def test_split_k_order_wraps_like_int32(cluster):
-    """An int32 sum that leaves int32: the split sum wraps to the same
-    negative diagonal as the plain version, whatever the split."""
-    k = 70000
-    a = torch.full((2, k), 255, dtype=torch.uint8)
-    b3 = torch.full((k, 4, 1), 127, dtype=torch.int8)
-    wrapped = (255 * 127 * k + 2**31) % 2**32 - 2**31
-    assert wrapped < 0
-    for m in (Q, (1 << 31) - 99):
-        want = fused_ntt_tile_ref(a, b3, m, "int32_native")
-        assert int(want[0, 0]) == wrapped % m
-        assert torch.equal(_split_k_fold(a, b3, m, "int32_native", cluster), want)
+def test_split_k_order_matches_plain_version(accum):
+    """The kernel's split-K order (slices over a cluster of 1, 2, 4 or 8,
+    k groups in a block) gives the plain version's bits: inside the 2**24
+    window (random operands, a ragged K, every diagonal at the window's
+    edge) and, under int32_native, for a sum that wraps to a negative
+    int32."""
+    edge = (torch.full((8, 513), 255, dtype=torch.uint8),
+            torch.full((513, 16, 5), -128, dtype=torch.int8))
+    cases = [tuple(map(torch.from_numpy, _operands(8, 513, 32, 5))),
+             tuple(map(torch.from_numpy, _operands(3, 37, 10, 7))), edge]
+    if accum == "int32_native":
+        k = 70000
+        cases.append((torch.full((2, k), 255, dtype=torch.uint8),
+                      torch.full((k, 4, 1), 127, dtype=torch.int8)))
+        wrapped = (255 * 127 * k + 2**31) % 2**32 - 2**31
+        assert wrapped < 0
+        want = fused_ntt_tile_ref(*cases[-1], Q, accum)
+        assert int(want[0, 0]) == wrapped % Q
+    for a, b3 in cases:
+        for m in (Q, (1 << 31) - 99):
+            want = fused_ntt_tile_ref(a, b3, m, accum)
+            for cluster in (1, 2, 4, 8):
+                got = _split_k_fold(a, b3, m, accum, cluster)
+                assert torch.equal(got, want), (a.shape, b3.shape, m, cluster)
 
 
 def _plans(d, accum):

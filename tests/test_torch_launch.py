@@ -165,21 +165,32 @@ def test_wrapper_on_cpu_tensors_raises_and_counts_nothing(name):
 
 
 def test_launch_grid_reads_the_c_entry_through_its_out_pointer(monkeypatch):
-    """K3's launch geometry comes from ``fused_ntt_tile_grid``, which writes
-    blocks, cluster size and variant through its last pointer."""
+    """K3's launch geometry comes from ``fused_ntt_tile_grid``, which takes
+    the operand's card and writes blocks, cluster size and variant through
+    its last pointer.  A CPU operand has no card and raises."""
     seen = []
 
-    def grid_entry(n, k, d, n_diag, b3_ptr, out_ptr):
-        seen.append((n, k, d, n_diag, b3_ptr))
+    def grid_entry(n, k, d, n_diag, b3_ptr, device, out_ptr):
+        seen.append((n, k, d, n_diag, b3_ptr, device))
         out = (build.ctypes.c_int * 3).from_address(out_ptr)
         out[0], out[1], out[2] = 256, 4, 1
         return 0
 
+    class OnCard1:   # the two calls launch_grid makes of an operand on cuda:1
+        def data_ptr(self):
+            return _B3.data_ptr()
+
+        def get_device(self):
+            return 1
+
     monkeypatch.setattr(build, "entries",
                         lambda: {"fused_ntt_tile_grid": grid_entry})
-    got = k3.launch_grid(8, 6144, 2048, 5, _B3)
+    got = k3.launch_grid(8, 6144, 2048, 5, OnCard1())
     assert got == {"blocks": 256, "cluster": 4, "variant": "bulk"}
-    assert seen == [(8, 6144, 2048, 5, _B3.data_ptr())]
+    assert seen == [(8, 6144, 2048, 5, _B3.data_ptr(), 1)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k3.launch_grid(8, 6144, 2048, 5, _B3)
+    assert len(seen) == 1
 
 
 _PTXAS_LOG = """\
