@@ -6,18 +6,27 @@
 Phases, each printing one JSON line:
 
 1. env — the card (``nvidia-smi`` name and power limit, compute capability
-   9.0) and the build of the CUDA kernels from ``src/repro_torch/csrc``;
+   9.0), the build of the CUDA kernels from ``src/repro_torch/csrc`` and
+   each kernel instance's registers and spills from the build's ptxas
+   report (``k1_resources``, ``k2_resources``, ``k3_resources``);
 2. kernels — ``limb_matmul`` (K1) and ``mont_fold`` (K2) against their plain
    PyTorch versions on the card, bit for bit, at every main-path shape and
-   at edge cases; then their times at the main-path shapes (CUDA events
-   around runs of back-to-back calls, median of 50 runs, K1 in turns with
-   its plain version and the library call; and the kernel's
-   own device time from torch.profiler) beside the plain version, the bound
-   and, for K1, one library call (its time per call and on the device) and
-   K1's grid size; the launch floor (an empty kernel's device time, read the
-   same way, and K2's device time over it); and the launch path of one K1
-   call split into the bare ctypes launch, the ``*_cuda`` wrapper and the
-   full ``ops`` call;
+   at edge cases (for K2: every n_diag from 1 to 8 with every int32 edge on
+   every diagonal, m = 2, 3 and 2**31 - 1, output counts that are no
+   multiple of the block size); then their times at the main-path shapes
+   (CUDA events around runs of back-to-back calls, median of 50 runs, K1 in
+   turns with its plain version and the library call; and the kernel's own
+   device time from torch.profiler) beside the plain version, the bound,
+   the grid and, for K1, one library call (its time per call and on the
+   device); the launch floor (an empty kernel's device time, read the same
+   way, and K2's device time over it); the pass spans (``pass_span``): for
+   each K2 shape and its K1 partner, 20 passes captured as one CUDA graph
+   and replayed between CUDA events (median of 50, in turns) as K1 → K2,
+   K1 alone and K1 → the empty kernel, so K2's marginal cost in a pass
+   beside its standalone device time, and the graph's residues equal to
+   the eager pass's after every buffer was overwritten; and the launch
+   path of one K1 call split into the bare ctypes launch, the ``*_cuda``
+   wrapper and the full ``ops`` call, with K2's full ``ops`` call beside it;
 3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
    int32, κ = 2) and a per-plane staged transform against an int64 numpy
    oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
@@ -32,8 +41,9 @@ Phases, each printing one JSON line:
    oracle; then K3's times beside its bound (and, for fp32_mantissa, the
    bound with the multiply-adds priced as FFMA), its launch geometry, its
    plain version and the unfused pair K1 + K2 on the same pass, the two
-   timed in turns on both clocks, and one fused transform beside one staged
-   transform;
+   timed in turns per call and as graph spans (K2 is a programmatic
+   dependent of K1, so the pair's profiler durations overlap and are not
+   added), and one fused transform beside one staged transform;
 5. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
    trace (λ = 4096 req/s for 0.25 s, 50:50 Dilithium:BN254, n_c = 8) and of
    the mixed eager/lazy configuration, every tenant row checked (Dilithium
@@ -43,8 +53,9 @@ Phases, each printing one JSON line:
    of the paper trace that split its wall time (host timers around the
    kernel wrappers and ``rns_to_field``; torch.profiler for device time).
 
-``python3 chip_smoke.py --k3`` runs the first phase, K3's checks and K3's
-times, and stops: a short call for a change to K3.
+Two short calls run the first phase and stop: ``--k3`` adds K3's checks and
+times (for a change to K3), ``--k2`` K2's checks, times and pass spans and
+K3's checks (for a change to the fold, which K3 shares).
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
 code is not 0 and the last line is missing.  The last two lines are the
@@ -80,6 +91,7 @@ from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1, grid_blocks, l
 from repro_torch.kernels.limb_matmul.ops import limb_matmul      # noqa: E402
 from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref  # noqa: E402
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  # noqa: E402
+from repro_torch.kernels.mont_fold.kernel import grid_blocks as k2_grid_blocks  # noqa: E402
 from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
 from repro_torch.launch.serve import serve_crypto                # noqa: E402
@@ -92,10 +104,13 @@ SEED = 0
 BANDWIDTH = {"H200": 4.8e12, "H100": 3.35e12}
 INT8_OPS = 1.979e15
 CUDA_CORE_OPS = 67e12
-# Integer operations of the Horner fold per diagonal: 8 doublings of
-# (shift, compare, subtract) and the remainder, sign fix, add, compare and
-# subtract.
-FOLD_OPS_PER_DIAG = 8 * 3 + 6
+# Integer operations of the fold (csrc/fold.cuh) per diagonal: its term
+# (sign flip, multiply-high, two multiplies, subtract, and the conditional
+# subtract as a subtract and a min), then one add-mod of the tree (add,
+# subtract, min).
+FOLD_OPS_PER_DIAG = 7 + 3
+# Back-to-back passes in one CUDA graph for the device spans.
+PASSES = 20
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -126,6 +141,11 @@ K2_TIMED = [(8, 256, 5, Q), (8, 512, 5, Q), (8, 64, 7, R.make_chain(9).base[0])]
 # (Dilithium d = 2048, a 63 MB operand), K = 6145 (no multiple of the slab
 # or of the cluster split) and K past the A chunk with eight diagonals.
 BN_M = R.make_chain(9).base[0]
+# K2's edge cases: every int32 edge on every diagonal, at the smallest
+# moduli (2 and 3: most weights 0 or 1), the main path's, and the largest
+# (2**31 - 1: 2m is 2**32 - 2, the edge of the fold's 32-bit reduction).
+INT32_EDGES = (-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 1)
+K2_MODULI = (2, 3, Q, BN_M, (1 << 31) - 99, 2**31 - 1)
 K3_SHAPES = [(8, 513, 256, 5, Q), (8, 255, 256, 5, Q), (128, 513, 256, 5, Q),
              (128, 512, 256, 7, BN_M), (3, 100, 70, 5, Q),
              (16, 300, 64, 7, 2**31 - 1),
@@ -187,23 +207,28 @@ def median_ms_turns(fns: dict, dev, runs=50, per_run=20, warmup=10) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def device_ms(fn, kernel: str | None, dev, n=50) -> float | None:
+def device_ms(fn, kernel: str | None, dev, n=50, windows=3) -> float | None:
     """Mean device time of one launch of ``kernel`` (torch.profiler), or,
-    with ``kernel=None``, of all the device work of one call of ``fn``; None
-    when the profiler sees no device time."""
+    with ``kernel=None``, of all the device work of one call of ``fn``.  The
+    profiler now and then drops a window's events, so a window that shows
+    no device time is profiled again, up to ``windows`` in all; None when
+    none shows any."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize(dev)
-    if kernel is None:
-        total = sum(ev.self_device_time_total for ev in _kernel_events(prof))
-        return total / n / 1e3 or None
-    for ev in prof.key_averages():
-        if kernel in ev.key and ev.count:
-            return ev.self_device_time_total / ev.count / 1e3 or None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize(dev)
+        if kernel is None:
+            ms = sum(ev.self_device_time_total for ev in _kernel_events(prof)) / n / 1e3
+        else:
+            ms = next((ev.self_device_time_total / ev.count / 1e3
+                       for ev in prof.key_averages()
+                       if kernel in ev.key and ev.count), 0)
+        if ms:
+            return ms
     return None
 
 
@@ -249,9 +274,39 @@ def phase_env(dev):
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "build_s": time.perf_counter() - t0,
            "library": build.library_path().name,
+           "k1_resources": _k1_resources(),
+           "k2_resources": _k2_resources(),
            "k3_resources": _k3_resources()}
     emit(env)
     return env
+
+
+def _k1_resources() -> list:
+    """[accumulator, B-load variant, registers, spill store and load bytes,
+    static shared memory] of every K1 instance, from the build's ptxas
+    report."""
+    rows = []
+    for r in build.ptxas_report("limb_matmul_kernel"):
+        m = re.search(r"limb_matmul_kernelI([fj])Lb([01])E", r["kernel"])
+        check(m is not None, f"unexpected K1 instance {r['kernel']}")
+        rows.append(["fp32" if m[1] == "f" else "int32",
+                     "word" if m[2] == "1" else "bytes", r["registers"],
+                     r["spill_stores"], r["spill_loads"], r["smem"]])
+    check(len(rows) == 4, f"{len(rows)} K1 instances in the ptxas report")
+    return sorted(rows)
+
+
+def _k2_resources() -> list:
+    """[n_diag, registers, spill store and load bytes] of every K2
+    instance, from the build's ptxas report."""
+    rows = []
+    for r in build.ptxas_report("mont_fold_kernel"):
+        m = re.search(r"mont_fold_kernelILi(\d)E", r["kernel"])
+        check(m is not None, f"unexpected K2 instance {r['kernel']}")
+        rows.append([int(m[1]), r["registers"], r["spill_stores"],
+                     r["spill_loads"]])
+    check(len(rows) == 8, f"{len(rows)} K2 instances in the ptxas report")
+    return sorted(rows)
 
 
 def _k3_resources() -> list:
@@ -272,8 +327,8 @@ def _k3_resources() -> list:
 def phase_kernels(dev, card: str):
     rng = np.random.default_rng(SEED)
     torch.backends.cuda.matmul.allow_tf32 = False
-    worst = {"limb_matmul": 0, "mont_fold": 0}
-    n_checked = {"limb_matmul": 0, "mont_fold": 0}
+    worst = {"limb_matmul": 0}
+    n_checked = {"limb_matmul": 0}
 
     def k1_inputs(n, k, m, fill=None):
         if fill is not None:
@@ -319,33 +374,6 @@ def phase_kernels(dev, card: str):
     for accum in ("fp32_mantissa", "int32_native"):
         k1_check(a, b_odd, accum, "B at an odd address (8, 513, 1280)")
 
-    def k2_check(diags, m, what):
-        got = mont_fold_cuda(diags, m)
-        want = mont_fold_ref(diags, m)
-        err = max_abs_err(got, want)
-        check(err == 0, f"mont_fold {what} m={m}: max |err| {err}")
-        worst["mont_fold"] = max(worst["mont_fold"], err)
-        n_checked["mont_fold"] += 1
-
-    def diags_in(lo, hi, shape):
-        return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
-                               device=dev)
-
-    i32 = 2**31 - 1
-    for n, d, nd, m in [(8, 256, 7, 2013265921), (5, 300, 5, Q),
-                        (16, 64, 7, (1 << 31) - 99)]:
-        k2_check(diags_in(-(2**24), 2**24, (n, d, nd)), m, "sweep")
-    for m in R.make_chain(9).moduli:
-        k2_check(diags_in(-(2**24), 2**24, (8, 64, 7)), m, "bn254 channel")
-    for m in (Q, (1 << 31) - 99):
-        k2_check(diags_in(-i32, i32 + 1, (8, 256, 5)), m, "kappa-summed")
-        k2_check(diags_in(-i32, 0, (8, 256, 5)), m, "all negative")
-        edge = torch.tensor([[-i32, i32, -i32 - 1, 0, -1]] * 64,
-                            dtype=torch.int32, device=dev)
-        k2_check(edge, m, "int32 edges")
-    for n, d, nd, m in K2_TIMED:
-        k2_check(diags_in(-(2**24), 2**24, (n, d, nd)), m, "main path")
-
     bw = bandwidth(card)
     k1_times = []
     for n, k, m in K1_TIMED:
@@ -371,14 +399,92 @@ def phase_kernels(dev, card: str):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "blocks": grid_blocks(n, m)})
-    k2_times = []
+    k2 = k2_checks(dev, rng)
+    n_checked["mont_fold"], worst["mont_fold"] = k2["checked"], k2["max_abs_err"]
+    k2_times = k2_timings(dev, card, rng)
+    out = {"phase": "kernels", "checked": n_checked, "max_abs_err": worst,
+           "limb_matmul": k1_times, **k2_times,
+           "pass_span": pass_spans(dev, rng, k2_times["mont_fold"]),
+           "launch_path": _launch_path(dev, *k1_inputs(*K1_TIMED[0]),
+                                       k2_inputs(rng, dev, K2_TIMED[0][:3]),
+                                       K2_TIMED[0][3])}
+    emit(out)
+    return out
+
+
+def k2_inputs(rng, dev, shape, lo=-(2**24), hi=2**24):
+    return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
+                           device=dev)
+
+
+def int32_edge_rows(rng, nd: int, cap=4096) -> np.ndarray:
+    """Rows of nd diagonals drawn from INT32_EDGES: every combination while
+    there are at most ``cap``, else each edge on every diagonal at once and
+    ``cap`` random combinations."""
+    e = np.array(INT32_EDGES, np.int64)
+    if len(e) ** nd <= cap:
+        idx = np.indices((len(e),) * nd).reshape(nd, -1).T
+    else:
+        idx = np.concatenate([np.repeat(np.arange(len(e))[:, None], nd, 1),
+                              rng.integers(0, len(e), (cap, nd))])
+    return np.ascontiguousarray(e[idx], dtype=np.int32)
+
+
+def k2_checks(dev, rng) -> dict:
+    """K2 against its plain version, bit for bit: random and κ-summed
+    diagonals, the BN254 channels, every n_diag from 1 to 8 with the int32
+    edges at the edge moduli, output counts that are no multiple of the
+    block size, and the main-path shapes."""
+    worst, n_checked = 0, 0
+
+    def k2_check(diags, m, what):
+        nonlocal worst, n_checked
+        check(diags.is_contiguous(), "mont_fold_cuda takes contiguous diagonals")
+        got = mont_fold_cuda(diags, m)
+        want = mont_fold_ref(diags, m)
+        err = max_abs_err(got, want)
+        check(err == 0, f"mont_fold {what} {tuple(diags.shape)} m={m}: "
+                        f"max |err| {err}")
+        worst = max(worst, err)
+        n_checked += 1
+
+    i32 = 2**31 - 1
+    for n, d, nd, m in [(8, 256, 7, 2013265921), (5, 300, 5, Q),
+                        (16, 64, 7, (1 << 31) - 99)]:
+        k2_check(k2_inputs(rng, dev, (n, d, nd)), m, "sweep")
+    for m in R.make_chain(9).moduli:
+        k2_check(k2_inputs(rng, dev, (8, 64, 7)), m, "bn254 channel")
+    for m in (Q, (1 << 31) - 99):
+        k2_check(k2_inputs(rng, dev, (8, 256, 5), -i32, i32 + 1), m, "kappa-summed")
+        k2_check(k2_inputs(rng, dev, (8, 256, 5), -i32, 0), m, "all negative")
+    for nd in range(1, 9):
+        edges = torch.as_tensor(int32_edge_rows(rng, nd), device=dev)
+        kappa = k2_inputs(rng, dev, (8, 129, nd), -(2**31), 2**31)
+        for m in K2_MODULI:
+            k2_check(edges, m, "int32 edges")
+            k2_check(kappa, m, "kappa-summed")
+    for n_out in (1, 127, 129, 4099):
+        for nd, m in ((5, Q), (7, BN_M), (8, 2**31 - 1)):
+            k2_check(k2_inputs(rng, dev, (n_out, nd), -(2**31), 2**31), m,
+                     "ragged")
     for n, d, nd, m in K2_TIMED:
-        diags = diags_in(-(2**24), 2**24, (n, d, nd))
+        k2_check(k2_inputs(rng, dev, (n, d, nd)), m, "main path")
+    return {"checked": n_checked, "max_abs_err": worst}
+
+
+def k2_timings(dev, card: str, rng) -> dict:
+    """K2 at each timed shape beside its bound and its plain version, with
+    its grid; then the launch floor (an empty kernel's device time, read the
+    same way as K2's) and K2's device time over it."""
+    bw = bandwidth(card)
+    rows = []
+    for n, d, nd, m in K2_TIMED:
+        diags = k2_inputs(rng, dev, (n, d, nd))
         nbytes = 4 * n * d * nd + 4 * n * d
         ops = n * d * nd * FOLD_OPS_PER_DIAG
         t_bytes, t_ops = nbytes / bw * 1e3, ops / CUDA_CORE_OPS * 1e3
-        k2_times.append({
-            "shape": [n, d, nd], "modulus": m,
+        rows.append({
+            "shape": [n, d, nd], "modulus": m, "blocks": k2_grid_blocks(n * d),
             "kernel_ms": median_ms(lambda: mont_fold_cuda(diags, m), dev),
             "kernel_device_ms": device_ms(lambda: mont_fold_cuda(diags, m),
                                           "mont_fold_kernel", dev),
@@ -386,26 +492,97 @@ def phase_kernels(dev, card: str):
             "library_ms": None,   # no single torch call computes the fold
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-    # The launch floor: an empty kernel's device time, read the same way as
-    # K2's, and K2 against it.
-    empty = build.entries()["empty_launch"]
-
-    def empty_call():
-        build.check(empty(dev.index, build.current_stream(dev.index)),
-                    "empty_launch")
-
-    empty_ms = device_ms(empty_call, "empty_kernel", dev)
+    empty_ms = device_ms(_empty_call(dev), "empty_kernel", dev)
     floor = {"device_ms": empty_ms,
              "mont_fold_ratio": [None if empty_ms is None or t["kernel_device_ms"] is None
                                  else t["kernel_device_ms"] / empty_ms
-                                 for t in k2_times]}
-    out = {"phase": "kernels", "checked": n_checked, "max_abs_err": worst,
-           "limb_matmul": k1_times, "mont_fold": k2_times,
-           "empty_launch": floor,
-           "launch_path": _launch_path(dev, *k1_inputs(*K1_TIMED[0]),
-                                       diags_in(-(2**24), 2**24, K2_TIMED[0][:3]),
-                                       K2_TIMED[0][3])}
-    emit(out)
+                                 for t in rows]}
+    return {"mont_fold": rows, "empty_launch": floor}
+
+
+def _empty_call(dev):
+    """One launch of the empty kernel (csrc/empty.cu) on the current
+    stream."""
+    empty = build.entries()["empty_launch"]
+
+    def call():
+        build.check(empty(dev.index, build.current_stream(dev.index)),
+                    "empty_launch")
+
+    return call
+
+
+def capture(fn, passes=PASSES):
+    """``passes`` back-to-back calls of ``fn`` captured as one CUDA graph:
+    the graph and the outputs of every call, all kept alive (so no call
+    reuses another's buffers)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(passes)]
+    return graph, outs
+
+
+def graph_spans(graphs: dict, dev, passes=PASSES, runs=50) -> dict:
+    """Device time of one call with the host out of the way, from graphs of
+    ``passes`` calls (``capture``): each graph replayed between CUDA events,
+    the graphs in turns; the median of ``runs`` replays over ``passes``."""
+    ms = median_ms_turns({name: g.replay for name, g in graphs.items()}, dev,
+                         runs=runs, per_run=1)
+    return {name: t / passes for name, t in ms.items()}
+
+
+def pass_spans(dev, rng, k2_rows: list) -> list:
+    """The cost of K2 inside a staging pass.  For each K2 timed shape and
+    its K1 partner, three graphs of PASSES passes: K1 then K2 (K2 a
+    programmatic dependent of K1), K1 alone, K1 then the empty kernel.  K2's
+    marginal cost is span(K1 → K2) − span(K1), set beside its standalone
+    device time.  Before the timing, every diagonal and residue buffer of
+    the K1 → K2 graph is overwritten, the graph replayed, and each pass's
+    residues must equal the eager pass's: a K2 that read before K1's stores
+    were visible would fold the overwritten diagonals."""
+    empty_call = _empty_call(dev)
+    out = []
+    for (n, k, cols), (_, d, nd, m), k2 in zip(K1_TIMED, K2_TIMED, k2_rows):
+        check(cols == d * nd, f"K1 {(n, k, cols)} does not feed K2 {(n, d, nd)}")
+        a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
+        b = torch.as_tensor(rng.integers(-128, 128, (k, cols)).astype(np.int8),
+                            device=dev)
+
+        def k1():
+            return limb_matmul_cuda(a, b, "fp32_mantissa").view(n, d, nd)
+
+        def k1_k2():
+            diag = k1()
+            return diag, mont_fold_cuda(diag, m)
+
+        def k1_empty():
+            diag = k1()
+            empty_call()
+            return diag
+
+        want = k1_k2()[1]
+        check(torch.equal(want, mont_fold_ref(
+            limb_matmul_ref(a, b, "fp32_mantissa").view(n, d, nd), m)),
+              f"eager K1 -> K2 at {(n, k, cols)} differs from the plain versions")
+        graph, passes = capture(k1_k2)
+        for diag, res in passes:
+            diag.fill_(2**31 - 1)
+            res.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        check(all(torch.equal(res, want) for _, res in passes),
+              f"graph K1 -> K2 at {(n, k, cols)} differs from the eager pass")
+        span = graph_spans({"k1_k2": graph, "k1": capture(k1)[0],
+                            "k1_empty": capture(k1_empty)[0]}, dev)
+        marginal = span["k1_k2"] - span["k1"]
+        out.append({"k1_shape": [n, k, cols], "k2_shape": [n, d, nd],
+                    "modulus": m, "passes": PASSES, "span_ms": span,
+                    "k2_marginal_ms": marginal,
+                    "empty_marginal_ms": span["k1_empty"] - span["k1"],
+                    "k2_device_ms": k2["kernel_device_ms"],
+                    "pdl_hides": (k2["kernel_device_ms"] is not None
+                                  and marginal < k2["kernel_device_ms"]),
+                    "graph_equals_eager": True})
     return out
 
 
@@ -495,13 +672,6 @@ def _k3_bound(n: int, k: int, d: int, nd: int, bw: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _mean_of_read(times: list):
-    """The mean of the profiler readings that saw the kernel (None when
-    none did: the profiler now and then drops a window's events)."""
-    read = [t for t in times if t is not None]
-    return statistics.mean(read) if read else None
-
-
 def _k3_ffma_bound(n: int, k: int, d: int, nd: int, bw: float) -> float:
     """``_k3_bound`` with the GEMM priced as the fp32_mantissa model runs
     it: float32 FFMA on the CUDA cores, two operations per multiply-add at
@@ -588,26 +758,21 @@ def k3_timings(dev, card: str, rng) -> list:
         def pair():
             return mont_fold_cuda(limb_matmul_cuda(a, b2, accum).view(n, d, nd), m)
 
-        def pair_device_ms():
-            times = [device_ms(pair, name, dev)
-                     for name in ("limb_matmul_kernel", "mont_fold_kernel")]
-            return None if None in times else sum(times)
-
         check(torch.equal(fused(), pair()), f"K3 != K1 + K2 at {(n, k, d, nd)}")
         bound, by = _k3_bound(n, k, d, nd, bw)
-        # K3 and the pair are compared, so both clocks take them in turns:
-        # events fused, pair, ...; the profiler fused, pair, pair, fused.
+        # K3 and the pair are compared, so each clock takes them in turns.
+        # The pair's device time is its span in a graph: K2 is a
+        # programmatic dependent of K1, so the profiler's K2 duration holds
+        # its wait on K1 and the two durations do not add up.
         ms = median_ms_turns({"fused": fused, "pair": pair}, dev)
-        dev_turns = [device_ms(fused, "fused_ntt_tile_kernel", dev),
-                     pair_device_ms(), pair_device_ms(),
-                     device_ms(fused, "fused_ntt_tile_kernel", dev)]
-        fused_dev = _mean_of_read(dev_turns[::3])
-        pair_dev = _mean_of_read(dev_turns[1:3])
+        span = graph_spans({"fused": capture(fused)[0],
+                            "pair": capture(pair)[0]}, dev)
         k3_times.append({
             "shape": [n, k, d, nd], "accum": accum, "modulus": m,
             **launch_grid(n, k, d, nd, b3),
             "kernel_ms": ms["fused"],
-            "kernel_device_ms": fused_dev,
+            "kernel_device_ms": device_ms(fused, "fused_ntt_tile_kernel", dev),
+            "span_ms": span["fused"],
             "plain_ms": median_ms(lambda: fused_ntt_tile_ref(a, b3, m, accum), dev),
             # no single torch call computes the GEMM and the fold together
             "library_ms": None,
@@ -615,8 +780,7 @@ def k3_timings(dev, card: str, rng) -> list:
             "ffma_bound_ms": (_k3_ffma_bound(n, k, d, nd, bw)
                               if accum == "fp32_mantissa" else None),
             "unfused_ms": ms["pair"],
-            "unfused_device_ms": pair_dev,
-            "device_turns_ms": dev_turns})
+            "unfused_span_ms": span["pair"]})
     return k3_times
 
 
@@ -913,6 +1077,17 @@ def main():
         rng = np.random.default_rng(SEED + 3)
         emit({"phase": "k3_checks", **k3_checks(dev, rng)})
         emit({"phase": "k3_timings", "fused_ntt_tile": k3_timings(dev, env["device"], rng)})
+        return
+    if sys.argv[1:] == ["--k2"]:
+        # a short call: the build, K2's checks, times and pass spans, and
+        # K3's checks (K3 folds with K2's code), no more
+        rng = np.random.default_rng(SEED)
+        emit({"phase": "k2_checks", **k2_checks(dev, rng)})
+        k2 = k2_timings(dev, env["device"], rng)
+        emit({"phase": "k2_timings", **k2,
+              "pass_span": pass_spans(dev, rng, k2["mont_fold"])})
+        emit({"phase": "k3_checks",
+              **k3_checks(dev, np.random.default_rng(SEED + 3))})
         return
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)

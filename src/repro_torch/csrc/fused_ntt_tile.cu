@@ -57,8 +57,9 @@
 // - Epilogue: the 4 partial tiles of a block go through the freed ring and
 //   are added; rank r of the cluster then sums the outputs o ≡ r (mod c)
 //   over the ranks in fixed rank order through distributed shared memory,
-//   casts each diagonal with to_int32 and folds it with K2's Horner loop
-//   (fold.cuh).
+//   casts each diagonal with to_int32 and folds it with K2's fold
+//   (fold.cuh: independent terms, constants computed on the host by the C
+//   entry).
 // Ragged N, K and D are masked (A is zero past N and K, B past D); nothing is
 // padded (the Pallas wrapper's zero padding adds nothing to any sum, so the
 // bits are the same).  Times: PERF.md.
@@ -265,7 +266,7 @@ fused_ntt_tile_kernel(const uint8_t* __restrict__ a,
                       const int8_t* __restrict__ b3, int32_t* __restrict__ out,
                       const __grid_constant__ CUtensorMap b_map, int pitch,
                       int box_rows, int n, int k, int d, int slice,
-                      uint32_t m) {
+                      const FoldConsts<NDIAG> fc) {
   constexpr bool INT32 = std::is_same<Acc, uint32_t>::value;
   using T = Tile<NDIAG, INT32>;
   constexpr int TC = T::TC;
@@ -425,7 +426,7 @@ fused_ntt_tile_kernel(const uint8_t* __restrict__ a,
   }
   // Rank r of the cluster folds the outputs o ≡ r (mod c): each diagonal is
   // the sum of the ranks' partial tiles in rank order (through distributed
-  // shared memory), cast with to_int32 and folded with K2's Horner loop.  A
+  // shared memory), cast with to_int32 and folded with K2's fold.  A
   // rank arrives on the cluster barrier once it has read the others, and
   // waits on it before it exits.
   if (csize > 1) {
@@ -458,7 +459,7 @@ fused_ntt_tile_kernel(const uint8_t* __restrict__ a,
     const int row = row0 + o / CC;
     const int c = o % CC;
     if (o < ROWS * CC && row < n && c < cols) {
-      out[(size_t)row * d + col0 + c] = (int32_t)fold_diagonals<NDIAG>(diag[i], m);
+      out[(size_t)row * d + col0 + c] = (int32_t)fold_diagonals<NDIAG>(diag[i], fc);
     }
   }
   if (csize > 1) asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
@@ -552,7 +553,7 @@ cudaError_t launch_kernel(const uint8_t* a, const int8_t* b3, int32_t* out,
     if (err != cudaSuccess) return err;
   }
   return cudaLaunchKernelEx(&cfg, kernel, a, b3, out, b_map, pitch, box_rows,
-                            n, k, d, p.slice, m);
+                            n, k, d, p.slice, make_fold_consts<NDIAG>(m));
 }
 
 template <int NDIAG>

@@ -47,6 +47,16 @@
 //
 // The two accumulator models (int32 wrap, fp32 FFMA) are in accum.cuh,
 // shared with K3.
+//
+// Each block triggers its programmatic dependents once it has issued its
+// first loads (griddepcontrol.launch_dependents), so that K2, launched after
+// it with programmatic stream serialization, is scheduled while K1's
+// multiplies and reduction run.  K2 waits for K1's completion and stores
+// before it reads (mont_fold.cu), so where the trigger sits changes only
+// when K2's blocks arrive, never what they read.  A trigger at block start
+// let K2's blocks sit on the SMs through K1's load latency and made the pass
+// slower at (8, 513, 2560); one after the multiplies hid less of K2's
+// launch (a sweep of the three places on the card).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -152,6 +162,9 @@ limb_matmul_kernel(const uint8_t* __restrict__ a, const int8_t* __restrict__ b,
         av[u][r] = live && row < rows ? a[(size_t)(row0 + row) * k + kk] : 0u;
       }
     }
+    // The first loads are in flight: let a programmatic dependent (K2)
+    // be scheduled.  It still waits for this grid to complete.
+    if (k0 == 0) asm volatile("griddepcontrol.launch_dependents;");
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (k0 + u * THREADS + tid < k) {

@@ -20,3 +20,9 @@ def mont_fold_cuda(diags: torch.Tensor, modulus: int) -> torch.Tensor:
                      out.data_ptr(), n_out, diags.shape[-1], modulus)
         COUNTER.launches += 1
     return out
+
+
+def grid_blocks(n_out: int) -> int:
+    """Blocks in K2's grid for ``n_out`` outputs, as the launch computes
+    them (builds the library on first use)."""
+    return build.entries()["mont_fold_blocks"](n_out)
