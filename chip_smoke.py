@@ -51,11 +51,26 @@ Phases, each printing one JSON line:
    launch counted against the engines' fold profiles (and no K3 launch:
    the replay does not take the fused path); then two more runs
    of the paper trace that split its wall time (host timers around the
-   kernel wrappers and ``rns_to_field``; torch.profiler for device time).
+   kernel wrappers and ``rns_to_field``; torch.profiler for device time);
+6. online — the online server (``serve_crypto_online`` on the card, the
+   measured service time, not the modelled one) on the same paper trace in
+   three configurations: (a) ``online_paper``, the defaults, which also
+   writes its Chrome trace and OpenMetrics text under ``chiprun_out/``
+   and is run once more under torch.profiler for the device idle share;
+   (b) ``online_fastpath``, (a) with the row ladder, the async pipeline,
+   the controller, a depth-2 launch ring and λ-holdback; (c)
+   ``online_mixed_eager_lazy``, int32 with lazy Dilithium at d = 256.  Each
+   prints its counts, every tenant row checked (Dilithium against the int64
+   oracle, every row against the slice replay of the same trace), its
+   launch census (K1/K2 launches against the fold profiles, the census
+   probes included; K3 none), latency and queue-wait percentiles from the
+   telemetry and per workload, occupancy, the dispatch section, peak device
+   memory and the card's name and power limit.
 
-Two short calls run the first phase and stop: ``--k3`` adds K3's checks and
+Three short calls run the first phase and stop: ``--k3`` adds K3's checks and
 times (for a change to K3), ``--k2`` K2's checks, times and pass spans and
-K3's checks (for a change to the fold, which K3 shares).
+K3's checks (for a change to the fold, which K3 shares), ``--online`` the
+online phase, with the CPU replays of its two traces as the reference.
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
 code is not 0 and the last line is missing.  The last two lines are the
@@ -94,7 +109,11 @@ from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  
 from repro_torch.kernels.mont_fold.kernel import grid_blocks as k2_grid_blocks  # noqa: E402
 from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
-from repro_torch.launch.serve import serve_crypto                # noqa: E402
+from repro_torch.launch.serve import serve_crypto, serve_crypto_online  # noqa: E402
+from repro_torch.core.scheduler.coscheduler import expected_kernel_calls  # noqa: E402
+from repro_torch.obs import validate_chrome_trace, validate_openmetrics  # noqa: E402
+from repro_torch.serve import ServeConfig                       # noqa: E402
+from repro_torch.serve.server import coscheduler_from_config    # noqa: E402
 
 Q = F.DILITHIUM_Q
 SEED = 0
@@ -111,6 +130,20 @@ CUDA_CORE_OPS = 67e12
 FOLD_OPS_PER_DIAG = 7 + 3
 # Back-to-back passes in one CUDA graph for the device spans.
 PASSES = 20
+# The mixed eager/lazy configuration (tests/test_serve_runtime.py:211-228).
+MIXED = dict(accum="int32_native", d_tile=171,
+             reduction_by_workload={"dilithium": "lazy"})
+# The online phase's configurations: (serve_crypto_online keywords, d_uniform,
+# reference rows).  (b) takes the flags of the fast path and the control
+# plane; (c) is the mixed configuration.
+ONLINE = {
+    "online_paper": ({}, None, "paper"),
+    "online_fastpath": (dict(row_ladder_max=16, async_pipeline=True,
+                             controller=True, inflight_depth=2,
+                             holdback_lambda=1.5), None, "paper"),
+    "online_mixed_eager_lazy": (MIXED, 256, "mixed"),
+}
+OUT = Path(__file__).resolve().parent / "chiprun_out"
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -903,11 +936,7 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
           f"{label}: launches {launches} != fold-profile totals "
           f"({want_k1}, {want_k2})")
 
-    cpu_results, _, _ = _replay(SliceCoScheduler(device="cpu", **cos_kw),
-                                d_uniform=d_uniform)
-    cpu_rows = {}
-    for r in cpu_results:
-        cpu_rows.update(r.outputs)
+    cpu_rows = _cpu_rows(d_uniform, **cos_kw)
     per_workload, oracle = {}, {}
     for r in results:
         w, d = r.batch.workload, r.batch.d_bucket
@@ -935,7 +964,17 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
                                      for k, v in launches.items()},
            "rows_checked": len(cpu_rows)}
     emit(out)
-    return out
+    return out, cpu_rows
+
+
+def _cpu_rows(d_uniform=None, **cos_kw) -> dict:
+    """Every tenant row of the replay on the CPU (the plain versions)."""
+    results, _, _ = _replay(SliceCoScheduler(device="cpu", **cos_kw),
+                            d_uniform=d_uniform)
+    rows = {}
+    for r in results:
+        rows.update(r.outputs)
+    return rows
 
 
 def _kernel_events(prof):
@@ -1065,6 +1104,175 @@ def _rns_to_field_graph(cos, dev) -> dict:
             "kernels_per_call": kernels}
 
 
+def _percentiles(xs) -> dict:
+    xs = np.asarray(xs, np.float64)
+    if not len(xs):
+        return {}
+    return {f"p{q}_s": float(np.percentile(xs, q)) for q in (50, 95, 99)}
+
+
+def _online_run(dev, label: str, kw: dict, d_uniform, paths: dict | None):
+    """One ``serve_crypto_online`` run of the paper trace on the card (its
+    co-scheduler built from the run's own config, with each launch
+    counted per class), with the kernel counters at 0 and peak memory
+    reset just before it.  Returns the run and its counts."""
+    cfg_keys = ("accum", "d_tile", "reduction_by_workload", "row_ladder_max")
+    cos = coscheduler_from_config(
+        ServeConfig(**{k: v for k, v in kw.items() if k in cfg_keys}),
+        device=dev)
+    runs = {}
+    run = cos._run
+
+    def counted(workload, d, operand):
+        runs[(workload, d)] = runs.get((workload, d), 0) + 1
+        return run(workload, d, operand)
+
+    cos._run = counted
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the peak counts from what earlier phases left allocated
+    resident = torch.cuda.memory_allocated(dev)
+    K1.reset()
+    K2.reset()
+    K3.reset()
+    load, snap, wall = serve_crypto_online(
+        duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED, d_uniform=d_uniform,
+        validate=True, coscheduler=cos, device=dev,
+        trace_out=paths and str(paths["trace"]),
+        metrics_out=paths and str(paths["metrics"]), **kw)
+    torch.cuda.synchronize(dev)
+    memory = {"resident_before_bytes": resident,
+              "max_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+              "max_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
+    launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+                "fused_ntt_tile": K3.launches}
+    # every dispatched class ran one census probe besides its launches
+    want = [0, 0]
+    for key, n in runs.items():
+        calls = expected_kernel_calls(cos.engine_for(*key))
+        want[0] += (n + 1) * calls[0]
+        want[1] += (n + 1) * calls[1]
+    check(launches == {"limb_matmul": want[0], "mont_fold": want[1],
+                       "fused_ntt_tile": 0} and all(want),
+          f"{label}: launches {launches} != fold-profile census {want} "
+          f"(and no K3)")
+    check(sum(runs.values()) == snap["dispatch"]["dispatches"],
+          f"{label}: {sum(runs.values())} launches counted, the telemetry "
+          f"has {snap['dispatch']['dispatches']}")
+    return load, snap, wall, memory, launches, want
+
+
+def _check_online_rows(label: str, load, ref: dict, oracle: dict) -> int:
+    """Every served tenant row against the reference replay's, Dilithium
+    also against the int64 oracle; raises on the first mismatch."""
+    by_d = {}
+    for h in load.handles:
+        if h.rejected:
+            continue
+        tid, row = h.request.tenant_id, h.result()
+        check(np.array_equal(row, ref[tid]),
+              f"{label}: tenant {tid} differs from the slice replay")
+        if h.request.workload == "dilithium":
+            by_d.setdefault(len(row), []).append(h)
+    for d, hs in by_d.items():
+        a = np.zeros((len(hs), d), np.uint32)
+        for i, h in enumerate(hs):
+            a[i, :h.request.degree] = h.request.coeffs
+        if d not in oracle:
+            oracle[d] = NTT.ntt_matrix(
+                d, Q, negacyclic=(Q - 1) % (2 * d) == 0).astype(np.int64)
+        want = ((a.astype(np.int64) @ oracle[d]) % Q).astype(np.uint32)
+        got = np.stack([h.result() for h in hs])
+        check(np.array_equal(got, want),
+              f"{label}: dilithium d={d} rows differ from the oracle")
+    return sum(len(hs) for hs in by_d.values())
+
+
+def _online_idle_share(dev, kw: dict, wall: float) -> dict:
+    """(a) once more under torch.profiler: the device's busy time over the
+    unprofiled run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    cos = coscheduler_from_config(ServeConfig(), device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve_crypto_online(duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED,
+                            validate=True, coscheduler=cos, device=dev, **kw)
+        torch.cuda.synchronize(dev)
+    busy = sum(ev.self_device_time_total for ev in _kernel_events(prof)) / 1e6
+    if not busy:
+        return {"device_busy_s": None, "device_idle_share": None}
+    return {"device_busy_s": busy, "device_idle_share": 1 - busy / wall}
+
+
+def phase_online(dev, env: dict, refs: dict):
+    """The online server on the card in the three configurations of
+    ``ONLINE``, each checked row by row and launch by launch."""
+    OUT.mkdir(exist_ok=True)
+    oracle, outs = {}, []
+    for label, (kw, d_uniform, ref) in ONLINE.items():
+        paths = None
+        if label == "online_paper":
+            paths = {"trace": OUT / "online_paper_trace.json.gz",
+                     "metrics": OUT / "online_paper_metrics.om"}
+        load, snap, wall, memory, launches, want = _online_run(
+            dev, label, kw, d_uniform, paths)
+        served = sum(h.done() and not h.rejected for h in load.handles)
+        dropped = len(load.handles) - served - len(load.rejected)
+        check(dropped == 0 and served == snap["requests_served"] > 0,
+              f"{label}: {dropped} requests neither served nor rejected")
+        dil_rows = _check_online_rows(label, load, refs[ref], oracle)
+        by_workload = {}
+        for h in load.handles:
+            if not h.rejected:
+                by_workload.setdefault(h.request.workload, []).append(
+                    h.latency_s)
+        disp = snap["dispatch"]
+        out = {"phase": "online", "label": label,
+               "nvidia_smi": env["nvidia_smi"], "config": kw,
+               "d_uniform": d_uniform, "served": served,
+               "rejected": len(load.rejected), "dropped": dropped,
+               "rows_checked": served, "dilithium_oracle_rows": dil_rows,
+               "wrong_rows": 0, "wall_s": wall, "ops_per_s": served / wall,
+               "launches": launches, "census_launches": want,
+               "census": "passed",
+               "latency": {k: snap["latency"][k]
+                           for k in ("p50_s", "p95_s", "p99_s", "mean_s",
+                                     "max_s")},
+               "queue_wait": {k: snap["queue_wait"][k]
+                              for k in ("p50_s", "p95_s", "p99_s")},
+               "latency_by_workload": {w: _percentiles(v)
+                                       for w, v in by_workload.items()},
+               "k_occupancy_mean": snap["k_occupancy_mean"],
+               "m_occupancy_mean": snap["m_occupancy_mean"],
+               "batches": snap["batches"],
+               "close_reasons": snap["close_reasons"],
+               "reduction_stalls": {k: snap["reduction_stalls"][k] for k in
+                                    ("eager_folds", "deferred_folds")},
+               "dispatch": {"launches": disp["dispatches"],
+                            "merged": disp["merged_dispatches"],
+                            "m_fill_mean": disp["m_fill_mean"],
+                            "m_occupancy_mean": disp["m_occupancy_mean"]},
+               "service_s_total": snap["service_s_total"],
+               "device_memory": memory}
+        if "controller" in snap:
+            out["controller_updates"] = snap["controller"]["updates"]
+            out["holdback"] = snap["holdback"]
+        if paths:
+            stats = validate_chrome_trace(str(paths["trace"]))
+            check(stats["requests"] == served,
+                  f"{label}: the trace has {stats['requests']} request "
+                  f"chains for {served} served")
+            mstats = validate_openmetrics(str(paths["metrics"]))
+            out["trace"] = {"path": str(paths["trace"].relative_to(
+                OUT.parent)), **stats}
+            out["metrics"] = {"path": str(paths["metrics"].relative_to(
+                OUT.parent)), **mstats}
+            out.update(_online_idle_share(dev, kw, wall))
+        emit(out)
+        outs.append(out)
+    return outs
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -1077,6 +1285,12 @@ def main():
         rng = np.random.default_rng(SEED + 3)
         emit({"phase": "k3_checks", **k3_checks(dev, rng)})
         emit({"phase": "k3_timings", "fused_ntt_tile": k3_timings(dev, env["device"], rng)})
+        return
+    if sys.argv[1:] == ["--online"]:
+        # a short call: the build and the online phase, its reference rows
+        # from the CPU replays of its two traces
+        phase_online(dev, env, {"paper": _cpu_rows(),
+                                "mixed": _cpu_rows(256, **MIXED)})
         return
     if sys.argv[1:] == ["--k2"]:
         # a short call: the build, K2's checks, times and pass spans, and
@@ -1092,10 +1306,11 @@ def main():
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
     fused = phase_fused(dev, env["device"])
-    paper = phase_slice(dev, "paper")
-    phase_slice(dev, "mixed_eager_lazy", d_uniform=256, accum="int32_native",
-                d_tile=171, reduction_by_workload={"dilithium": "lazy"})
+    paper, paper_rows = phase_slice(dev, "paper")
+    _, mixed_rows = phase_slice(dev, "mixed_eager_lazy", d_uniform=256,
+                                **MIXED)
     phase_profile(dev)
+    phase_online(dev, env, {"paper": paper_rows, "mixed": mixed_rows})
 
     rows = []
     for name, replaces, timed, launches, err in (

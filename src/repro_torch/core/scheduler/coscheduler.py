@@ -87,6 +87,19 @@ def expected_kernel_calls(eng) -> tuple[int, int]:
     return k1, fp["n_folds"]
 
 
+def check_launch_census(eng, k1_calls: int, k2_calls: int, what: str):
+    """The port's stand-in for the JAX package's HLO validator: one e2e of
+    ``eng`` must have made exactly the kernel calls its ``fold_profile``
+    implies (eager: a GEMM and a fold per pass and channel; lazy: a fold
+    per window and channel).  Raises on any mismatch."""
+    want = expected_kernel_calls(eng)
+    if (k1_calls, k2_calls) != want:
+        raise RuntimeError(
+            f"launch census failed for {what}: limb_matmul/mont_fold calls "
+            f"({k1_calls}, {k2_calls}) != ({want[0]}, {want[1]}) from "
+            f"fold_profile {eng.fold_profile}")
+
+
 @dataclasses.dataclass
 class DispatchResult:
     batch: StackedBatch

@@ -196,6 +196,21 @@ def check(code: int, what: str):
                            f"{code}")
 
 
+def pointers(name: str, *tensors: torch.Tensor) -> list[int]:
+    """The data pointers of ``tensors`` for the C entry ``name``, which
+    reads each one as a dense row-major array.  A tensor that is not
+    contiguous (a transpose, a strided slice, a Fortran-ordered copy)
+    raises here, before any C call: its pointer would hand the kernel the
+    wrong elements."""
+    for i, t in enumerate(tensors):
+        if not t.is_contiguous():
+            raise ValueError(
+                f"{name}: operand {i} (shape {tuple(t.shape)}, strides "
+                f"{t.stride()}) is not contiguous; the kernel reads it "
+                f"row-major")
+    return [t.data_ptr() for t in tensors]
+
+
 def launch(name: str, like: torch.Tensor, *args):
     """Call the C entry ``name`` with ``args``, then the device index of
     ``like`` and PyTorch's current stream on that device; raise on a

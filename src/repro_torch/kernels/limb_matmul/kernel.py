@@ -12,13 +12,14 @@ def limb_matmul_cuda(a_u8: torch.Tensor, b_s8: torch.Tensor,
                      accum: str) -> torch.Tensor:
     """Launch K1 on PyTorch's current stream of the operands' device.  The
     caller (``ops.limb_matmul``) has checked dtypes, shapes, devices and
-    contiguity."""
+    contiguity; a non-contiguous operand still raises here, before the C
+    call."""
     n, k = a_u8.shape
     m = b_s8.shape[1]
     out = a_u8.new_empty((n, m), dtype=torch.int32)
+    ptrs = build.pointers("limb_matmul_launch", a_u8, b_s8, out)
     if n and m:
-        build.launch("limb_matmul_launch", a_u8, a_u8.data_ptr(),
-                     b_s8.data_ptr(), out.data_ptr(), n, k, m,
+        build.launch("limb_matmul_launch", a_u8, *ptrs, n, k, m,
                      accum == "fp32_mantissa")
         COUNTER.launches += 1
     return out

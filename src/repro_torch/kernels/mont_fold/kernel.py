@@ -11,13 +11,15 @@ COUNTER = build.KernelCounter()
 def mont_fold_cuda(diags: torch.Tensor, modulus: int) -> torch.Tensor:
     """Launch K2 on PyTorch's current stream of ``diags``' device.  The
     caller (``ops.mont_fold``) has checked dtype, n_diag, modulus and
-    contiguity.  Residues leave in an int32 tensor: the kernel writes uint32
+    contiguity; a non-contiguous operand still raises here, before the C
+    call.  Residues leave in an int32 tensor: the kernel writes uint32
     values < m < 2**31, whose bits are the same."""
     out = diags.new_empty(diags.shape[:-1])
+    ptrs = build.pointers("mont_fold_launch", diags, out)
     n_out = out.numel()
     if n_out:
-        build.launch("mont_fold_launch", diags, diags.data_ptr(),
-                     out.data_ptr(), n_out, diags.shape[-1], modulus)
+        build.launch("mont_fold_launch", diags, *ptrs, n_out,
+                     diags.shape[-1], modulus)
         COUNTER.launches += 1
     return out
 

@@ -1,12 +1,21 @@
-"""Serving launcher of the port — the offline multi-tenant replay.
+"""Serving launcher of the port — two modes:
 
-``--mode crypto`` replays the Aegis multi-tenant sequencer: Poisson ingress →
-Tier-1 rectangular batching → Tier-2 co-scheduled dispatch → per-tenant
-results.  On CUDA every staging-pass GEMM is the ``limb_matmul`` kernel and
-every fold the ``mont_fold`` kernel.  The JAX package's online and LM modes
-are not ported yet.
+* ``--mode crypto``: offline replay of the Aegis multi-tenant sequencer:
+  Poisson ingress → Tier-1 rectangular batching → Tier-2 co-scheduled
+  dispatch → per-tenant results, with the launch census at the first
+  dispatch of every class;
+* ``--mode crypto-online``: the :mod:`repro_torch.serve` runtime — live
+  submit → admission → continuous batcher → dispatch closed loop with
+  telemetry JSON, Chrome trace and OpenMetrics exports.
+
+On CUDA every staging-pass GEMM is the ``limb_matmul`` kernel and every fold
+the ``mont_fold`` kernel.  The JAX package's LM mode and its cluster flags
+(``--hosts``, ``--fault-plan``, ``--device-parallel``, ``--shed-watermark``,
+``--gossip-period-ms``) are not ported yet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto-online \
+        --device cpu --duration 0.01 --rate 1024 --max-age-ms 2
 """
 from __future__ import annotations
 
@@ -16,23 +25,10 @@ import time
 from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,
                                         RectangularScheduler)
 from repro_torch.core.scheduler.coscheduler import (SliceCoScheduler,
-                                                    expected_kernel_calls)
+                                                    check_launch_census)
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2
 from repro_torch.serve.client import attach_payloads
-
-
-def check_launch_census(eng, k1_calls: int, k2_calls: int, what: str):
-    """The port's stand-in for the JAX package's HLO validator: one e2e of
-    ``eng`` must have made exactly the kernel calls its ``fold_profile``
-    implies (eager: a GEMM and a fold per pass and channel; lazy: a fold
-    per window and channel).  Raises on any mismatch."""
-    want = expected_kernel_calls(eng)
-    if (k1_calls, k2_calls) != want:
-        raise RuntimeError(
-            f"launch census failed for {what}: limb_matmul/mont_fold calls "
-            f"({k1_calls}, {k2_calls}) != ({want[0]}, {want[1]}) from "
-            f"fold_profile {eng.fold_profile}")
 
 
 def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
@@ -74,9 +70,143 @@ def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
     return results, n_ops, dt
 
 
+def serve_crypto_online(*, duration_s=0.05, rate_hz=2048, n_c=8,
+                        max_age_s=0.005, d_uniform=None, seed=0,
+                        validate=True, accum="fp32_mantissa",
+                        reduction="eager", reduction_by_workload=None,
+                        kappa=None, d_tile=None,
+                        max_pending=1024, tenant_rate_hz=None,
+                        slo_deadline_s=None, occupancy_close=None,
+                        merge_dispatch=True, row_ladder_max=None,
+                        donate=False, async_pipeline=False, warm_start=None,
+                        controller=False, holdback_lambda=0.0,
+                        inflight_depth=1, compilation_cache_dir=None,
+                        telemetry_out=None, trace_out=None,
+                        metrics_out=None, metrics_period_s=0.005,
+                        metrics_port=None, deterministic_timing=False,
+                        realtime=False, coscheduler=None,
+                        arrival_batch=None, columnar_admission=True,
+                        device="cuda"):
+    """Closed loop over the online runtime: load generator → admission →
+    continuous batcher → co-scheduled dispatch → per-tenant results, as the
+    JAX package's ``serve_crypto_online``.  Returns ``(load, snapshot,
+    seconds)``.
+
+    The co-scheduler is built on ``device`` (CUDA unless ``device="cpu"``;
+    without a GPU the default raises, nothing falls back), unless a
+    ``coscheduler`` is given.  ``trace_out`` switches request-lifecycle
+    tracing on and writes the run's Chrome-trace JSON there; ``metrics_out``
+    switches the continuous metrics scrape + alert engine on and writes the
+    OpenMetrics exposition there (``.gz`` compresses either file);
+    ``metrics_port`` additionally serves ``/metrics`` over HTTP on localhost
+    for the run's duration (``realtime`` only)."""
+    from repro_torch.core.scheduler import PoissonTrace
+    from repro_torch.serve import CryptoServer, LoadGenerator, ServeConfig
+    from repro_torch.serve.server import coscheduler_from_config
+
+    if metrics_port is not None and not realtime:
+        raise ValueError("--metrics-port needs --realtime: the HTTP "
+                         "endpoint only makes sense on the wall clock")
+
+    cfg = ServeConfig(n_c=n_c, max_age_s=max_age_s, validate=validate,
+                      accum=accum, max_pending=max_pending,
+                      reduction=reduction,
+                      reduction_by_workload=reduction_by_workload,
+                      kappa=kappa, d_tile=d_tile,
+                      tenant_rate_hz=tenant_rate_hz,
+                      slo_deadline_s=slo_deadline_s,
+                      occupancy_close=occupancy_close,
+                      merge_dispatch=merge_dispatch,
+                      row_ladder_max=row_ladder_max, donate=donate,
+                      async_pipeline=async_pipeline, warm_start=warm_start,
+                      controller=controller,
+                      holdback_lambda=holdback_lambda,
+                      inflight_depth=inflight_depth,
+                      compilation_cache_dir=compilation_cache_dir,
+                      columnar_admission=columnar_admission,
+                      tracing=trace_out is not None,
+                      metrics=(metrics_out is not None
+                               or metrics_port is not None),
+                      metrics_period_s=metrics_period_s,
+                      deterministic_timing=deterministic_timing)
+    if coscheduler is None:
+        coscheduler = coscheduler_from_config(cfg, device=device)
+    server = CryptoServer(cfg, coscheduler=coscheduler)
+    gen = LoadGenerator(PoissonTrace(rate_hz=rate_hz, duration_s=duration_s,
+                                     uniform_degree=d_uniform, seed=seed),
+                        seed=seed, accum=accum)
+    httpd = None
+    if metrics_port is not None:
+        from repro_torch.obs.metrics import serve_metrics_http
+        httpd = serve_metrics_http([server.metrics], metrics_port)
+    t0 = time.time()
+    try:
+        load = gen.run(server, realtime=realtime, arrival_batch=arrival_batch)
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+    dt = time.time() - t0
+    snap = (server.telemetry.write_json(telemetry_out) if telemetry_out
+            else server.telemetry.snapshot())
+    if trace_out:
+        server.write_trace(trace_out)
+    if metrics_out:
+        server.write_metrics(metrics_out)
+    return load, snap, dt
+
+
+def _print_online(args, load, snap, dt):
+    lat = snap["latency"]
+    print(f"online: served {load.n_served}/{len(load.handles)} requests "
+          f"({len(load.rejected)} rejected) in {dt:.2f}s wall on "
+          f"{args.device}, {snap['batches']} batches "
+          f"[{', '.join(f'{k}:{v}' for k, v in snap['close_reasons'].items())}]")
+    print(f"occupancy: K={snap['k_occupancy_mean']:.3f} "
+          f"M={snap['m_occupancy_mean']:.3f}, "
+          f"queue depth mean={snap['queue_depth_mean']:.1f} "
+          f"max={snap['queue_depth_max']}")
+    print(f"latency: p50={lat['p50_s']*1e3:.2f}ms "
+          f"p95={lat['p95_s']*1e3:.2f}ms p99={lat['p99_s']*1e3:.2f}ms")
+    stalls = snap["reduction_stalls"]
+    print(f"reduction stalls: eager={stalls['eager_folds']} "
+          f"deferred={stalls['deferred_folds']}")
+    disp = snap["dispatch"]
+    print(f"dispatch: {disp['dispatches']} launches "
+          f"({disp['merged_dispatches']} merged, "
+          f"{disp['batches_per_dispatch_mean']:.2f} batches/launch), "
+          f"M-occ {disp['m_occupancy_mean']:.3f} "
+          f"M-fill {disp['m_fill_mean']:.3f}; kernel launches "
+          f"limb_matmul={K1.launches} mont_fold={K2.launches}")
+    if args.controller:
+        ctl, hb = snap["controller"], snap["holdback"]
+        classes = ", ".join(
+            f"{name}: rung {c['target_rows']} "
+            f"age {c['max_age_s']*1e3:.1f}ms "
+            f"m-occ {c['m_occupancy_ewma']:.3f}"
+            for name, c in ctl["classes"].items())
+        print(f"controller: {ctl['updates']} updates [{classes}]; "
+              f"holdback {hb['held']} held → {hb['wins']} wins / "
+              f"{hb['losses']} losses / {hb['flushed']} flushed")
+    if args.metrics_out or args.metrics_port:
+        met, al = snap.get("metrics", {}), snap.get("alerts", {})
+        states = {name: r["state"] for name, r in
+                  al.get("rules", {}).items() if r["state"] != "inactive"}
+        fired = sum(r["fired"] for r in al.get("rules", {}).values())
+        print(f"metrics: {met.get('scrapes', 0)} scrapes / "
+              f"{met.get('series', 0)} series; alerts: "
+              f"{al.get('events_total', 0)} transitions, {fired} firings"
+              + (f", non-inactive {states}" if states else "")
+              + (f" → {args.metrics_out}" if args.metrics_out else ""))
+    if args.telemetry_out:
+        print(f"telemetry JSON → {args.telemetry_out}")
+    if args.trace_out:
+        print(f"trace → {args.trace_out} (open in ui.perfetto.dev)")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["crypto"], default="crypto")
+    ap.add_argument("--mode", choices=["crypto", "crypto-online"],
+                    default="crypto")
     ap.add_argument("--duration", type=float, default=0.05)
     ap.add_argument("--rate", type=float, default=2048)
     ap.add_argument("--n-c", type=int, default=8)
@@ -85,7 +215,111 @@ def main():
                     choices=["fp32_mantissa", "int32_native"])
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
+    ap.add_argument("--max-age-ms", type=float, default=5.0)
+    ap.add_argument("--tenant-rate", type=float, default=None,
+                    help="per-tenant token-bucket rate (req/s)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="reject requests predicted to queue past this deadline")
+    ap.add_argument("--telemetry-out", default=None,
+                    help="write the telemetry snapshot JSON here")
+    ap.add_argument("--trace-out", default=None,
+                    help="record request-lifecycle tracing and write the "
+                         "Chrome-trace/Perfetto JSON here (crypto-online; "
+                         "open in ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="scrape continuous metrics + run the alert engine "
+                         "and write the OpenMetrics exposition here "
+                         "(crypto-online; .gz compresses)")
+    ap.add_argument("--metrics-period-ms", type=float, default=5.0,
+                    help="serving-clock scrape cadence for --metrics-out")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="also serve GET /metrics on this localhost port for "
+                         "the run's duration (requires --realtime)")
+    ap.add_argument("--deterministic-timing", action="store_true",
+                    help="replace measured dispatch wall time with the "
+                         "paper's modelled TPU v4 cycle time so latencies, "
+                         "EWMAs, metrics series, and alert logs are "
+                         "bit-identical across reruns of the same trace")
+    ap.add_argument("--realtime", action="store_true",
+                    help="pace submissions in wall time (default: virtual clock)")
+    ap.add_argument("--reduction", default="eager", choices=["eager", "lazy"],
+                    help="default fold discipline for every workload class")
+    ap.add_argument("--reduction-by-workload", default=None,
+                    help="per-class overrides, e.g. 'dilithium=lazy,bn254=eager'")
+    ap.add_argument("--kappa", type=int, default=None,
+                    help="lazy deferral window depth (None = whole transform)")
+    ap.add_argument("--d-tile", type=int, default=None,
+                    help="staging-pass tile width override (e.g. 171 keeps the "
+                         "fp32-era pass structure under --accum int32_native)")
+    ap.add_argument("--no-merge", action="store_true",
+                    help="disable M-axis super-batching of same-class batches")
+    ap.add_argument("--row-ladder-max", type=int, default=None,
+                    help="pad launch heights up the rungs 8→16→…→MAX "
+                         "(bounds the distinct launch heights per class)")
+    ap.add_argument("--donate", action="store_true",
+                    help="recorded only: eager PyTorch donates nothing")
+    ap.add_argument("--async-pipeline", action="store_true",
+                    help="zero-sync dispatch: launch now, gather at the next "
+                         "serving event")
+    ap.add_argument("--controller", action="store_true",
+                    help="closed-loop close policy: adapt per-class target "
+                         "rung / max-age / occupancy from dispatch telemetry "
+                         "(static config values become the loop's bounds)")
+    ap.add_argument("--holdback-lambda", type=float, default=0.0,
+                    help="cross-event merge holdback aggressiveness (0 "
+                         "disables; requires --controller; SLO-priced)")
+    ap.add_argument("--inflight-depth", type=int, default=1,
+                    help="depth-k multi-flight launch ring per workload "
+                         "class (k>1 requires --async-pipeline)")
+    ap.add_argument("--compilation-cache-dir", default=None,
+                    help="recorded only: the CUDA kernels are cached on "
+                         "disk by source hash")
+    ap.add_argument("--arrival-batch", type=int, default=None,
+                    help="feed the trace through the vectorised submit_many "
+                         "ingress edge in chunks of this many arrivals "
+                         "(virtual clock only)")
+    ap.add_argument("--scalar-admission", action="store_true",
+                    help="per-tenant TokenBucket dict instead of the "
+                         "columnar (structured-array) admission state — the "
+                         "bit-identical oracle path")
     args = ap.parse_args()
+
+    reduction_by_workload = None
+    if args.reduction_by_workload:
+        try:
+            reduction_by_workload = dict(
+                kv.split("=", 1) for kv in args.reduction_by_workload.split(","))
+        except ValueError:
+            ap.error("--reduction-by-workload expects 'class=mode[,class=mode]'"
+                     f", e.g. 'dilithium=lazy' (got "
+                     f"{args.reduction_by_workload!r})")
+
+    if args.mode == "crypto-online":
+        load, snap, dt = serve_crypto_online(
+            duration_s=args.duration, rate_hz=args.rate, n_c=args.n_c,
+            max_age_s=args.max_age_ms / 1e3, seed=args.seed,
+            tenant_rate_hz=args.tenant_rate,
+            slo_deadline_s=None if args.slo_ms is None else args.slo_ms / 1e3,
+            accum=args.accum, reduction=args.reduction,
+            reduction_by_workload=reduction_by_workload,
+            kappa=args.kappa, d_tile=args.d_tile,
+            merge_dispatch=not args.no_merge,
+            row_ladder_max=args.row_ladder_max, donate=args.donate,
+            async_pipeline=args.async_pipeline,
+            controller=args.controller,
+            holdback_lambda=args.holdback_lambda,
+            inflight_depth=args.inflight_depth,
+            compilation_cache_dir=args.compilation_cache_dir,
+            telemetry_out=args.telemetry_out, trace_out=args.trace_out,
+            metrics_out=args.metrics_out,
+            metrics_period_s=args.metrics_period_ms / 1e3,
+            metrics_port=args.metrics_port,
+            deterministic_timing=args.deterministic_timing,
+            realtime=args.realtime, arrival_batch=args.arrival_batch,
+            columnar_admission=not args.scalar_admission,
+            device=args.device)
+        _print_online(args, load, snap, dt)
+        return
     results, n_ops, dt = serve_crypto(duration_s=args.duration,
                                       rate_hz=args.rate, n_c=args.n_c,
                                       seed=args.seed, accum=args.accum,

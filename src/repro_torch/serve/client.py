@@ -5,11 +5,11 @@ replay (``launch/serve.py``) and the online client, so the two paths consume
 byte-identical traces.
 
 ``LoadGenerator`` replays a trace against a server (anything with
-``submit``/``submit_many``/``pump``/``drain``/``next_deadline``, as the JAX
-package's ``CryptoServer``; the port's online server is not written yet) on a
-virtual clock derived from arrival timestamps: deterministic, immune to host
-jitter, and able to model hours of traffic in seconds of wall time.  Pass
-``realtime=True`` to pace submissions with actual sleeps instead.
+``submit``/``submit_many``/``pump``/``drain``/``next_deadline``, as
+:class:`repro_torch.serve.CryptoServer`) on a virtual clock derived from
+arrival timestamps: deterministic, immune to host jitter, and able to model
+hours of traffic in seconds of wall time.  Pass ``realtime=True`` to pace
+submissions with actual sleeps instead.
 """
 from __future__ import annotations
 
@@ -63,7 +63,11 @@ class LoadResult:
 
 
 class LoadGenerator:
-    def __init__(self, trace, *, seed: int = 0, attach: bool = True):
+    def __init__(self, trace, *, seed: int = 0, accum: str = "fp32_mantissa",
+                 attach: bool = True):
+        # ``accum`` is the JAX generator's keyword, taken so that callers of
+        # both packages read alike; the residues do not depend on it.
+        del accum
         if isinstance(trace, PoissonTrace):
             trace = trace.generate()
         self.trace = sorted(trace, key=lambda r: r.arrival_time)

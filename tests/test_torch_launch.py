@@ -164,6 +164,69 @@ def test_wrapper_on_cpu_tensors_raises_and_counts_nothing(name):
     assert module.COUNTER.launches == before
 
 
+def _fortran(t):
+    """The same values in the reversed (column-major) layout."""
+    dims = tuple(reversed(range(t.dim())))
+    return t.permute(dims).contiguous().permute(dims)
+
+
+def _strided(t):
+    """The same values as a strided slice: every other element of the last
+    axis of a tensor twice as wide."""
+    return torch.stack([t, t], dim=-1)[..., 0]
+
+
+# wrapper entry -> (its operands, a call on given operands)
+_OPERANDS = {
+    "limb_matmul_launch": ((_A, _B), lambda a, b: k1.limb_matmul_cuda(
+        a, b, "int32_native")),
+    "mont_fold_launch": ((_D,), lambda d: k2.mont_fold_cuda(d, 17)),
+    "fused_ntt_tile_launch": ((_A, _B3), lambda a, b3: k3.fused_ntt_tile_cuda(
+        a, b3, 17, "fp32_mantissa")),
+}
+
+
+@pytest.fixture
+def entries_on_card(monkeypatch):
+    """Every launch entry replaced by a stand-in, reached through the real
+    build.launch as if the operands were on cuda:0."""
+    table = {name: _Entry() for name in _OPERANDS}
+    monkeypatch.setattr(build, "_entries", table)
+    monkeypatch.setattr(build, "current_stream", lambda index: 4096 + index)
+    real = build.launch
+    monkeypatch.setattr(build, "launch", lambda name, like, *args: real(
+        name, _OnDevice(0), *args))
+    return table
+
+
+@pytest.mark.parametrize("layout", [_fortran, _strided],
+                         ids=["transposed", "strided"])
+@pytest.mark.parametrize("name,which", [(n, i) for n in sorted(_OPERANDS)
+                                        for i in range(len(_OPERANDS[n][0]))])
+def test_wrapper_refuses_a_non_contiguous_operand(entries_on_card, name,
+                                                  which, layout):
+    """A raw launcher hands data_ptr() to a kernel that reads row-major: an
+    operand in another layout raises, naming the entry, before any C call."""
+    operands, call = _OPERANDS[name]
+    args = list(operands)
+    args[which] = layout(args[which])
+    assert torch.equal(args[which], operands[which])
+    assert not args[which].is_contiguous()
+    with pytest.raises(ValueError, match=f"{name}.*not contiguous"):
+        call(*args)
+    assert all(not e.calls for e in entries_on_card.values())
+
+
+@pytest.mark.parametrize("name", sorted(_OPERANDS))
+def test_wrapper_passes_contiguous_operands_to_the_entry(entries_on_card,
+                                                         name):
+    operands, call = _OPERANDS[name]
+    call(*operands)
+    (args,) = entries_on_card[name].calls
+    assert args[:len(operands)] == tuple(t.data_ptr() for t in operands)
+    assert args[-2:] == (0, 4096)
+
+
 def test_launch_grid_reads_the_c_entry_through_its_out_pointer(monkeypatch):
     """K3's launch geometry comes from ``fused_ntt_tile_grid``, which takes
     the operand's card and writes blocks, cluster size and variant through
