@@ -46,30 +46,44 @@ Phases, each printing one JSON line:
    added), and one fused transform beside one staged transform;
 5. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
    trace (λ = 4096 req/s for 0.25 s, 50:50 Dilithium:BN254, n_c = 8) and of
-   the mixed eager/lazy configuration, every tenant row checked (Dilithium
-   against the int64 oracle, BN254 against the CPU replay) and every kernel
-   launch counted against the engines' fold profiles (and no K3 launch:
-   the replay does not take the fused path); then two more runs
-   of the paper trace that split its wall time (host timers around the
-   kernel wrappers and ``rns_to_field``; torch.profiler for device time);
+   the mixed eager/lazy configuration, each twice on one co-scheduler: cold
+   (each of its programs, one CUDA graph of a class's whole e2e per launch
+   height, captured at first use) and warm (every launch one replay,
+   nothing captured).  Every tenant row is checked (Dilithium against the
+   int64 oracle, BN254 against the CPU replay) and every kernel launch
+   counted against the engines' fold profiles: the program runs and each
+   capture's warm-up, and every program's recorded K1/K2 calls (no K3
+   launch: the replay does not take the fused path).  The line gives the
+   cold run's wall time and launches (``wall_s``, as a first replay on a
+   fresh co-scheduler), the warm run's under ``warm``, captures, their host
+   seconds and the graph pool's bytes; then two more warm runs of the paper
+   trace split its wall time (``profile``: host timers around the programs'
+   H2D copies, replays, D2H copies and the waits on their events;
+   torch.profiler for device time, whose K1/K2 kernel events must equal the
+   counted launches, and are the kernel table's K1/K2 ``launches``), and
+   one BN254 and one Dilithium dispatch time their program against the
+   same ``e2e`` called op by op;
 6. online — the online server (``serve_crypto_online`` on the card, the
    measured service time, not the modelled one) on the same paper trace in
-   three configurations: (a) ``online_paper``, the defaults, which also
-   writes its Chrome trace and OpenMetrics text under ``chiprun_out/``
-   and is run once more under torch.profiler for the device idle share;
-   (b) ``online_fastpath``, (a) with the row ladder, the async pipeline,
-   the controller, a depth-2 launch ring and λ-holdback; (c)
+   three configurations, each run cold and then warm on one co-scheduler:
+   (a) ``online_paper``, the defaults, which also writes its Chrome trace
+   and OpenMetrics text under ``chiprun_out/`` (cold) and is run once more
+   warm under torch.profiler for the device idle share; (b)
+   ``online_fastpath``, (a) with the row ladder, the async pipeline, the
+   controller, a depth-2 launch ring and λ-holdback; (c)
    ``online_mixed_eager_lazy``, int32 with lazy Dilithium at d = 256.  Each
    prints its counts, every tenant row checked (Dilithium against the int64
    oracle, every row against the slice replay of the same trace), its
-   launch census (K1/K2 launches against the fold profiles, the census
-   probes included; K3 none), latency and queue-wait percentiles from the
-   telemetry and per workload, occupancy, the dispatch section, peak device
-   memory and the card's name and power limit.
+   launch census (K1/K2 launches against the fold profiles: program runs,
+   capture warm-ups and census probes; K3 none), latency and queue-wait
+   percentiles from the telemetry and per workload, occupancy, the dispatch
+   section, captures, peak device memory and the card's name and power
+   limit; then ``online_memory``, the device memory in use and the live
+   programs before the phase and after it, its co-schedulers dropped.
 
 Three short calls run the first phase and stop: ``--k3`` adds K3's checks and
 times (for a change to K3), ``--k2`` K2's checks, times and pass spans and
-K3's checks (for a change to the fold, which K3 shares), ``--online`` the
+K3's checks (for a change to the fold, which K3 shares), and ``--online`` the
 online phase, with the CPU replays of its two traces as the reference.
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
@@ -80,6 +94,7 @@ Nothing of JAX or of the JAX package ``repro`` is imported.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import re
 import statistics
@@ -99,6 +114,7 @@ from repro_torch.core import ntt as NTT                          # noqa: E402
 from repro_torch.core import rns as R                            # noqa: E402
 from repro_torch.core import workloads as WK                     # noqa: E402
 from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E402
+from repro_torch.core.scheduler.program import E2EProgram, host_operand  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref  # noqa: E402
@@ -917,30 +933,46 @@ def _replay(cos, **kw):
                         validate=True, coscheduler=cos, **kw)
 
 
-def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
-    """One replay on the card with the kernel counters at 0, checked row by
-    row and launch by launch; returns the counts and times."""
-    cos = SliceCoScheduler(device=dev, **cos_kw)
-    K1.reset()
-    K2.reset()
-    K3.reset()
-    results, n_ops, wall = _replay(cos, d_uniform=d_uniform)
-    torch.cuda.synchronize(dev)
-    launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
-    check(K3.launches == 0, f"{label}: the replay launched K3 {K3.launches} "
-          f"times; it runs K1 and K2 only")
-    want_k1 = sum(r.stats["n_passes"] * r.stats["n_channels"] for r in results)
-    want_k2 = sum(r.stats["n_folds"] for r in results)
-    check(launches == {"limb_matmul": want_k1, "mont_fold": want_k2}
-          and want_k1 > 0 and want_k2 > 0,
-          f"{label}: launches {launches} != fold-profile totals "
-          f"({want_k1}, {want_k2})")
+def _reset_counters():
+    for counter in (K1, K2, K3):
+        counter.reset()
 
-    cpu_rows = _cpu_rows(d_uniform, **cos_kw)
-    per_workload, oracle = {}, {}
+
+def _census(cos, runs: dict, captures_before: dict, probes: int = 0) -> dict:
+    """K1/K2 launches a run must have enqueued: for each (workload,
+    d_bucket), its program runs, its new captures (each capture's warm-up
+    runs the e2e once) and ``probes`` census probes, times the calls of one
+    e2e (the fold profile)."""
+    want = {"limb_matmul": 0, "mont_fold": 0}
+    for key, n in runs.items():
+        k1, k2 = expected_kernel_calls(cos.engine_for(*key))
+        n += cos.trace_counts[key] - captures_before.get(key, 0) + probes
+        want["limb_matmul"] += n * k1
+        want["mont_fold"] += n * k2
+    return want
+
+
+def _program_census(cos, label: str) -> int:
+    """Every captured program's recorded K1/K2 calls and launches equal its
+    engine's fold profile, and it made no K3 call; returns the programs."""
+    n = 0
+    for key in cos.trace_counts:
+        for shape, prog in cos.jitted_for(*key).items():
+            want = expected_kernel_calls(prog.eng)
+            got = [(prog.calls[k], prog.launches[k])
+                   for k in ("limb_matmul", "mont_fold", "fused_ntt_tile")]
+            check(got == [(want[0], want[0]), (want[1], want[1]), (0, 0)],
+                  f"{label}: program {key} {shape} recorded {got}, the fold "
+                  f"profile says {want}")
+            n += 1
+    return n
+
+
+def _check_rows(label: str, results, cpu_rows: dict, oracle: dict):
+    """Every tenant row against the CPU replay's, Dilithium also against
+    the int64 oracle."""
     for r in results:
         w, d = r.batch.workload, r.batch.d_bucket
-        per_workload[w] = per_workload.get(w, 0) + r.batch.n_c
         if w == "dilithium":
             a = np.zeros((r.batch.n_c, d), np.uint32)
             for i, req in enumerate(r.batch.requests):
@@ -954,15 +986,62 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
         for tid, row in r.outputs.items():
             check(np.array_equal(row, cpu_rows[tid]),
                   f"{label}: tenant {tid} differs from the CPU replay")
+
+
+def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
+    """The replay on the card twice with one co-scheduler: cold (each
+    program captured at its first launch height) and warm (every launch a
+    replay, nothing captured).  Each run has the kernel counters at 0 and is
+    checked row by row and launch by launch; returns the cold run's counts
+    and times (a fresh co-scheduler, as a first replay has always been
+    measured), with the warm run's beside them under ``warm``."""
+    cos = SliceCoScheduler(device=dev, **cos_kw)
+    cpu_rows = _cpu_rows(d_uniform, **cos_kw)
+    oracle, runs = {}, {}
+    for phase in ("cold", "warm"):
+        captures = dict(cos.trace_counts)
+        _reset_counters()
+        results, n_ops, wall = _replay(cos, d_uniform=d_uniform)
+        torch.cuda.synchronize(dev)
+        launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
+        check(K3.launches == 0, f"{label}: the replay launched K3 "
+              f"{K3.launches} times; it runs K1 and K2 only")
+        dispatches = {}
+        for r in results:
+            key = (r.batch.workload, r.batch.d_bucket)
+            dispatches[key] = dispatches.get(key, 0) + 1
+        want = _census(cos, dispatches, captures)
+        check(launches == want and all(want.values()),
+              f"{label} {phase}: launches {launches} != the census {want}")
+        _check_rows(f"{label} {phase}", results, cpu_rows, oracle)
+        runs[phase] = {"wall_s": wall, "ops_per_s": n_ops / wall,
+                       "launches": launches,
+                       "captures": sum(cos.trace_counts.values())
+                       - sum(captures.values())}
+    check(runs["warm"]["captures"] == 0,
+          f"{label}: the warm replay captured {runs['warm']['captures']}")
+    warm = runs["warm"]
+    check(warm["launches"] == {
+        "limb_matmul": sum(r.stats["n_passes"] * r.stats["n_channels"]
+                           for r in results),
+        "mont_fold": sum(r.stats["n_folds"] for r in results)},
+          f"{label}: warm launches {warm['launches']} != fold-profile totals")
+    per_workload = {}
+    for r in results:
+        per_workload[r.batch.workload] = (per_workload.get(r.batch.workload, 0)
+                                          + r.batch.n_c)
     check(set(per_workload) == {"dilithium", "bn254"},
           f"{label}: trace did not reach both workloads")
     out = {"phase": "slice", "label": label, "requests": n_ops,
-           "per_workload": per_workload, "wall_s": wall,
-           "ops_per_s": n_ops / wall, "dispatches": len(results),
-           "launches": launches, "fused_ntt_tile_launches": K3.launches,
+           "per_workload": per_workload, **runs["cold"],
+           "dispatches": len(results), "fused_ntt_tile_launches": K3.launches,
            "launches_per_dispatch": {k: v / len(results)
-                                     for k, v in launches.items()},
-           "rows_checked": len(cpu_rows)}
+                                     for k, v in warm["launches"].items()},
+           "warm": warm, "programs": _program_census(cos, label),
+           **cos.program_stats(), "rows_checked": 2 * len(cpu_rows),
+           "device_memory": {
+               "allocated_bytes": torch.cuda.memory_allocated(dev),
+               "reserved_bytes": torch.cuda.memory_reserved(dev)}}
     emit(out)
     return out, cpu_rows
 
@@ -990,12 +1069,16 @@ def _kernel_events(prof):
 
 @contextlib.contextmanager
 def _host_timers(spent: dict):
-    """Add the host seconds spent inside each kernel wrapper and inside
-    ``rns_to_field`` (``BN254Engine.reduce``) to ``spent``, by wrapping the
-    names the engines call; everything is restored on exit.  Launches are
-    asynchronous, so this is the time to enqueue the work (and to wait when
-    the launch queue is full)."""
-    from repro_torch.core import montgomery as MG
+    """Add the host seconds spent in each program's H2D copy
+    (``E2EProgram.load``), graph replay (``replay``) and D2H copy
+    (``copy_out``) to ``spent``, and count the calls, by wrapping the
+    methods; restored on exit.  All three are asynchronous, so this is the
+    time to enqueue them (and to wait when the queue is full).  ``wait`` is
+    the time ``gather`` spends in the CUDA events that mark results on the
+    host, waiting for the device."""
+    names = {"load": "h2d", "replay": "replay", "copy_out": "d2h"}
+    originals = {name: getattr(E2EProgram, name) for name in names}
+    event_sync = torch.cuda.Event.synchronize
 
     def timed(fn, key):
         def wrapper(*args, **kwargs):
@@ -1004,46 +1087,66 @@ def _host_timers(spent: dict):
                 return fn(*args, **kwargs)
             finally:
                 spent[key] += time.perf_counter() - t0
+                spent["calls"][key] += 1
         return wrapper
 
-    saved = [(G, "limb_matmul"), (G, "mont_fold"), (MG, "mont_fold"),
-             (WK.BN254Engine, "reduce")]
-    originals = [getattr(obj, name) for obj, name in saved]
-    G.limb_matmul = timed(G.limb_matmul, "limb_matmul")
-    G.mont_fold = timed(G.mont_fold, "mont_fold")
-    MG.mont_fold = timed(MG.mont_fold, "mont_fold")
-    WK.BN254Engine.reduce = timed(WK.BN254Engine.reduce, "rns_to_field")
+    for name, key in names.items():
+        setattr(E2EProgram, name, timed(originals[name], key))
+    torch.cuda.Event.synchronize = timed(event_sync, "wait")
     try:
         yield spent
     finally:
-        for (obj, name), fn in zip(saved, originals):
-            setattr(obj, name, fn)
+        for name, fn in originals.items():
+            setattr(E2EProgram, name, fn)
+        torch.cuda.Event.synchronize = event_sync
+
+
+def _profiled_replay(cos, dev, tries=3) -> tuple:
+    """One warm replay under torch.profiler with the counters at 0: the
+    profile, its wall time, and the census by profiler (K1/K2 kernel events
+    equal to the counters' launches).  The profiler now and then drops
+    events; a replay whose events fall short is profiled again, up to
+    ``tries`` in all, and the last mismatch raises."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        _reset_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _replay(cos)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        events = {name: sum(ev.count for ev in _kernel_events(prof)
+                            if f"{name}_kernel" in ev.key)
+                  for name in ("limb_matmul", "mont_fold")}
+        counted = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
+        if events == counted:
+            return prof, wall, {"events": events, "counters": counted,
+                                "tries": attempt + 1}
+    raise AssertionError(f"profiler census: K1/K2 kernel events {events} != "
+                         f"launches counted {counted}")
 
 
 def phase_profile(dev):
-    """Where the paper trace's wall time goes.  After a warm-up replay (which
-    builds engines and uploads planes), one replay with host timers around
-    the kernel wrappers and ``rns_to_field`` splits the wall time on the
-    host; one more under torch.profiler gives the device time of every
-    kernel.  The device idle share sets the profiled busy time against the
-    unprofiled wall time (the profiler slows the host, not the kernels)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where the paper trace's wall time goes once every program is
+    captured.  After a warm-up replay (which captures them), one replay
+    with host timers around the programs' H2D copies, replays and D2H
+    copies and the waits on their events splits the wall time on the host; one more under torch.profiler
+    gives the device time of every kernel and checks the launch census a
+    second way, by the K1/K2 kernel events.  The device idle share sets the
+    profiled busy time against the unprofiled wall time (the profiler slows
+    the host, not the kernels)."""
     cos = SliceCoScheduler(device=dev)
     _replay(cos)
     torch.cuda.synchronize(dev)
-    spent = {"limb_matmul": 0.0, "mont_fold": 0.0, "rns_to_field": 0.0}
-    K1.reset()
-    K2.reset()
+    captures = dict(cos.trace_counts)
+    spent = {"h2d": 0.0, "replay": 0.0, "d2h": 0.0, "wait": 0.0,
+             "calls": {"h2d": 0, "replay": 0, "d2h": 0, "wait": 0}}
     with _host_timers(spent):
-        t0 = time.perf_counter()
-        results, _, _ = _replay(cos)
+        results, _, wall = _replay(cos)
         torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _replay(cos)
-        torch.cuda.synchronize(dev)
-        wall_profiled = time.perf_counter() - t0
+    check(cos.trace_counts == captures, "the warm replay captured a program")
+    prof, wall_profiled, census = _profiled_replay(cos, dev)
     device = {"limb_matmul": 0.0, "mont_fold": 0.0}
     busy_us, n_kernels, top = 0.0, 0, []
     for ev in _kernel_events(prof):
@@ -1055,53 +1158,74 @@ def phase_profile(dev):
                 device[name] += ev.self_device_time_total / 1e6
     top.sort(reverse=True)
     n_bn = sum(r.batch.workload == "bn254" for r in results)
+    calls = spent.pop("calls")
+    host = sum(spent.values())
     out = {"phase": "profile", "label": "paper", "wall_s": wall,
            "dispatches": len(results), "bn254_dispatches": n_bn,
            "host_s": spent,
            "host_share": {k: v / wall for k, v in spent.items()},
-           "host_us_per_call": {"limb_matmul": spent["limb_matmul"] / K1.calls * 1e6,
-                                "mont_fold": spent["mont_fold"] / K2.calls * 1e6},
-           "other_host_s": wall - sum(spent.values()),
+           "host_us_per_call": {k: spent[k] / calls[k] * 1e6 if calls[k]
+                                else None for k in spent},
+           "other_host_s": wall - host,
+           "census_by_profiler": census,
            "device_s": device if busy_us else None,
            "device_busy_s": busy_us / 1e6 if busy_us else None,
            "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
            "device_kernels": n_kernels, "wall_profiled_s": wall_profiled,
            "top_device": [{"s": t, "count": c, "kernel": k}
                           for t, c, k in top[:8]],
-           "rns_to_field_graph": _rns_to_field_graph(cos, dev)}
+           "program_vs_eager": _program_vs_eager(cos, dev)}
     emit(out)
     return out
 
 
-def _rns_to_field_graph(cos, dev) -> dict:
-    """Device time of one ``rns_to_field`` (BN254 d=64, 8 rows) with the
-    host out of the way: the call captured once as a CUDA graph and
-    replayed, beside the same call launched op by op."""
-    eng = cos.engine_for("bn254", 64)
-    rng = np.random.default_rng(SEED + 2)
-    y = eng.evaluate(rng.integers(0, 2**31, (8, 64, eng.n_channels)) %
-                     np.array(eng.chain.moduli))
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            want = eng.reduce(y)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        got = eng.reduce(y)
-    graph.replay()
-    torch.cuda.synchronize(dev)
-    check(torch.equal(got, want), "rns_to_field graph replay differs")
+def _kernels_per_call(fn, dev) -> int:
+    """Device events (kernels and copies) of one call of ``fn``
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.reduce(y)
+        fn()
         torch.cuda.synchronize(dev)
-    kernels = sum(ev.count for ev in _kernel_events(prof))
-    return {"graph_ms": median_ms(graph.replay, dev, runs=20, per_run=5),
-            "eager_ms": median_ms(lambda: eng.reduce(y), dev, runs=20,
-                                  per_run=5),
-            "kernels_per_call": kernels}
+    return sum(ev.count for ev in _kernel_events(prof))
+
+
+def _program_vs_eager(cos, dev) -> list:
+    """One BN254 (d = 64) and one Dilithium (d = 256, two passes) dispatch
+    of 8 rows: the program's run (the H2D copy and one graph replay)
+    against the same ``eng.e2e`` called op by op on the program's static
+    input, timed in turns (CUDA events, median of 20 runs of 5 calls), the
+    outputs equal, with the device events each makes per call."""
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+    for workload, d in (("bn254", 64), ("dilithium", 256)):
+        shape = cos.operand_shape(workload, d, 8)
+        prog = cos.program_for(workload, d, shape)
+        eng = prog.eng
+        if workload == "bn254":
+            live = (rng.integers(0, 2**31, shape, dtype=np.uint64)
+                    % np.array(eng.chain.moduli, np.uint64)).astype(np.uint32)
+        else:
+            live = rng.integers(0, Q, shape, dtype=np.uint64).astype(np.uint32)
+        host, view = host_operand(shape, dev)
+        view[:] = live
+        got = prog.run(host).clone()
+
+        def eager():
+            return eng.e2e(prog.static_in, planes=prog.planes)
+
+        check(torch.equal(got, eager().to(torch.int32)),
+              f"{workload} d={d}: the program's output differs from the "
+              f"op-by-op e2e")
+        ms = median_ms_turns({"program": lambda: prog.run(host),
+                              "eager": eager}, dev, runs=20, per_run=5)
+        rows.append({"workload": workload, "d": d, "shape": list(shape),
+                     "program_ms": ms["program"], "eager_ms": ms["eager"],
+                     "eager_over_program": ms["eager"] / ms["program"],
+                     "events_per_call": {
+                         "program": _kernels_per_call(lambda: prog.run(host), dev),
+                         "eager": _kernels_per_call(eager, dev)},
+                     "capture_s": prog.capture_s, "equal": True})
+    return rows
 
 
 def _percentiles(xs) -> dict:
@@ -1111,15 +1235,20 @@ def _percentiles(xs) -> dict:
     return {f"p{q}_s": float(np.percentile(xs, q)) for q in (50, 95, 99)}
 
 
-def _online_run(dev, label: str, kw: dict, d_uniform, paths: dict | None):
-    """One ``serve_crypto_online`` run of the paper trace on the card (its
-    co-scheduler built from the run's own config, with each launch
-    counted per class), with the kernel counters at 0 and peak memory
-    reset just before it.  Returns the run and its counts."""
+def _online_cos(dev, kw: dict):
+    """The run's co-scheduler, built from its own config."""
     cfg_keys = ("accum", "d_tile", "reduction_by_workload", "row_ladder_max")
-    cos = coscheduler_from_config(
+    return coscheduler_from_config(
         ServeConfig(**{k: v for k, v in kw.items() if k in cfg_keys}),
         device=dev)
+
+
+def _online_run(dev, cos, label: str, kw: dict, d_uniform,
+                paths: dict | None):
+    """One ``serve_crypto_online`` run of the paper trace on the card on
+    ``cos`` (each program run counted per class), with the kernel counters
+    at 0 and peak memory reset just before it.  Returns the run, its
+    counts and the census it was held to."""
     runs = {}
     run = cos._run
 
@@ -1128,38 +1257,39 @@ def _online_run(dev, label: str, kw: dict, d_uniform, paths: dict | None):
         return run(workload, d, operand)
 
     cos._run = counted
+    captures = dict(cos.trace_counts)
     torch.cuda.synchronize(dev)
+    # hand back what earlier phases left cached, so that the reserved peak
+    # is this run's; the peak still counts from what they left allocated
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    # the peak counts from what earlier phases left allocated
     resident = torch.cuda.memory_allocated(dev)
-    K1.reset()
-    K2.reset()
-    K3.reset()
-    load, snap, wall = serve_crypto_online(
-        duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED, d_uniform=d_uniform,
-        validate=True, coscheduler=cos, device=dev,
-        trace_out=paths and str(paths["trace"]),
-        metrics_out=paths and str(paths["metrics"]), **kw)
-    torch.cuda.synchronize(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    _reset_counters()
+    try:
+        load, snap, wall = serve_crypto_online(
+            duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED,
+            d_uniform=d_uniform, validate=True, coscheduler=cos, device=dev,
+            trace_out=paths and str(paths["trace"]),
+            metrics_out=paths and str(paths["metrics"]), **kw)
+        torch.cuda.synchronize(dev)
+    finally:
+        del cos._run
     memory = {"resident_before_bytes": resident,
+              "reserved_before_bytes": reserved,
               "max_allocated_bytes": torch.cuda.max_memory_allocated(dev),
               "max_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
     launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
                 "fused_ntt_tile": K3.launches}
     # every dispatched class ran one census probe besides its launches
-    want = [0, 0]
-    for key, n in runs.items():
-        calls = expected_kernel_calls(cos.engine_for(*key))
-        want[0] += (n + 1) * calls[0]
-        want[1] += (n + 1) * calls[1]
-    check(launches == {"limb_matmul": want[0], "mont_fold": want[1],
-                       "fused_ntt_tile": 0} and all(want),
-          f"{label}: launches {launches} != fold-profile census {want} "
-          f"(and no K3)")
+    want = _census(cos, runs, captures, probes=1)
+    check(launches == {**want, "fused_ntt_tile": 0} and all(want.values()),
+          f"{label}: launches {launches} != the census {want} (and no K3)")
     check(sum(runs.values()) == snap["dispatch"]["dispatches"],
           f"{label}: {sum(runs.values())} launches counted, the telemetry "
           f"has {snap['dispatch']['dispatches']}")
-    return load, snap, wall, memory, launches, want
+    new = sum(cos.trace_counts.values()) - sum(captures.values())
+    return load, snap, wall, memory, launches, want, new
 
 
 def _check_online_rows(label: str, load, ref: dict, oracle: dict) -> int:
@@ -1188,88 +1318,127 @@ def _check_online_rows(label: str, load, ref: dict, oracle: dict) -> int:
     return sum(len(hs) for hs in by_d.values())
 
 
-def _online_idle_share(dev, kw: dict, wall: float) -> dict:
-    """(a) once more under torch.profiler: the device's busy time over the
-    unprofiled run's wall time."""
+def _online_idle_share(dev, cos, kw: dict, wall: float) -> dict:
+    """(a) once more on its warm co-scheduler under torch.profiler: the
+    device's busy time over the unprofiled warm run's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    cos = coscheduler_from_config(ServeConfig(), device=dev)
+    captures = dict(cos.trace_counts)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         serve_crypto_online(duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED,
                             validate=True, coscheduler=cos, device=dev, **kw)
         torch.cuda.synchronize(dev)
+    check(cos.trace_counts == captures, "the profiled run captured a program")
     busy = sum(ev.self_device_time_total for ev in _kernel_events(prof)) / 1e6
     if not busy:
         return {"device_busy_s": None, "device_idle_share": None}
     return {"device_busy_s": busy, "device_idle_share": 1 - busy / wall}
 
 
+def _online_summary(label: str, run: tuple, ref: dict, oracle: dict) -> dict:
+    """The checks and the figures of one ``_online_run``."""
+    load, snap, wall, memory, launches, want, captures = run
+    served = sum(h.done() and not h.rejected for h in load.handles)
+    dropped = len(load.handles) - served - len(load.rejected)
+    check(dropped == 0 and served == snap["requests_served"] > 0,
+          f"{label}: {dropped} requests neither served nor rejected")
+    dil_rows = _check_online_rows(label, load, ref, oracle)
+    by_workload = {}
+    for h in load.handles:
+        if not h.rejected:
+            by_workload.setdefault(h.request.workload, []).append(h.latency_s)
+    disp = snap["dispatch"]
+    out = {"served": served, "rejected": len(load.rejected),
+           "dropped": dropped, "rows_checked": served,
+           "dilithium_oracle_rows": dil_rows, "wrong_rows": 0,
+           "wall_s": wall, "ops_per_s": served / wall,
+           "launches": launches, "census_launches": want,
+           "census": "passed", "captures": captures,
+           "latency": {k: snap["latency"][k]
+                       for k in ("p50_s", "p95_s", "p99_s", "mean_s",
+                                 "max_s")},
+           "queue_wait": {k: snap["queue_wait"][k]
+                          for k in ("p50_s", "p95_s", "p99_s")},
+           "latency_by_workload": {w: _percentiles(v)
+                                   for w, v in by_workload.items()},
+           "k_occupancy_mean": snap["k_occupancy_mean"],
+           "m_occupancy_mean": snap["m_occupancy_mean"],
+           "batches": snap["batches"],
+           "close_reasons": snap["close_reasons"],
+           "reduction_stalls": {k: snap["reduction_stalls"][k] for k in
+                                ("eager_folds", "deferred_folds")},
+           "dispatch": {"launches": disp["dispatches"],
+                        "merged": disp["merged_dispatches"],
+                        "m_fill_mean": disp["m_fill_mean"],
+                        "m_occupancy_mean": disp["m_occupancy_mean"]},
+           "service_s_total": snap["service_s_total"],
+           "device_memory": memory}
+    if "controller" in snap:
+        out["controller_updates"] = snap["controller"]["updates"]
+        out["holdback"] = snap["holdback"]
+    return out
+
+
+def _memory_in_use(dev) -> dict:
+    """Device memory in use once everything unreferenced is collected and
+    the allocator's cache handed back: the allocator's allocated and
+    reserved bytes, the card's used bytes (``cudaMemGetInfo``, which also
+    sees what the allocator does not, such as graph executables), and the
+    programs still alive."""
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    return {"allocated_bytes": torch.cuda.memory_allocated(dev),
+            "reserved_bytes": torch.cuda.memory_reserved(dev),
+            "used_bytes": total - free,
+            "live_programs": sum(isinstance(o, E2EProgram)
+                                 for o in gc.get_objects())}
+
+
 def phase_online(dev, env: dict, refs: dict):
     """The online server on the card in the three configurations of
-    ``ONLINE``, each checked row by row and launch by launch."""
+    ``ONLINE``, each run twice on one co-scheduler: cold (its programs
+    captured at their first launch) and warm (none captured), each checked
+    row by row and launch by launch.  The device memory in use before the
+    phase and after it, with its co-schedulers dropped, shows what the
+    phase left behind."""
     OUT.mkdir(exist_ok=True)
     oracle, outs = {}, []
+    before = _memory_in_use(dev)
     for label, (kw, d_uniform, ref) in ONLINE.items():
         paths = None
         if label == "online_paper":
             paths = {"trace": OUT / "online_paper_trace.json.gz",
                      "metrics": OUT / "online_paper_metrics.om"}
-        load, snap, wall, memory, launches, want = _online_run(
-            dev, label, kw, d_uniform, paths)
-        served = sum(h.done() and not h.rejected for h in load.handles)
-        dropped = len(load.handles) - served - len(load.rejected)
-        check(dropped == 0 and served == snap["requests_served"] > 0,
-              f"{label}: {dropped} requests neither served nor rejected")
-        dil_rows = _check_online_rows(label, load, refs[ref], oracle)
-        by_workload = {}
-        for h in load.handles:
-            if not h.rejected:
-                by_workload.setdefault(h.request.workload, []).append(
-                    h.latency_s)
-        disp = snap["dispatch"]
+        cos = _online_cos(dev, kw)
+        cold = _online_summary(label, _online_run(
+            dev, cos, label, kw, d_uniform, paths), refs[ref], oracle)
+        warm = _online_summary(f"{label} warm", _online_run(
+            dev, cos, f"{label} warm", kw, d_uniform, None), refs[ref], oracle)
+        check(warm["captures"] == 0, f"{label}: the warm run captured "
+              f"{warm['captures']} programs")
         out = {"phase": "online", "label": label,
                "nvidia_smi": env["nvidia_smi"], "config": kw,
-               "d_uniform": d_uniform, "served": served,
-               "rejected": len(load.rejected), "dropped": dropped,
-               "rows_checked": served, "dilithium_oracle_rows": dil_rows,
-               "wrong_rows": 0, "wall_s": wall, "ops_per_s": served / wall,
-               "launches": launches, "census_launches": want,
-               "census": "passed",
-               "latency": {k: snap["latency"][k]
-                           for k in ("p50_s", "p95_s", "p99_s", "mean_s",
-                                     "max_s")},
-               "queue_wait": {k: snap["queue_wait"][k]
-                              for k in ("p50_s", "p95_s", "p99_s")},
-               "latency_by_workload": {w: _percentiles(v)
-                                       for w, v in by_workload.items()},
-               "k_occupancy_mean": snap["k_occupancy_mean"],
-               "m_occupancy_mean": snap["m_occupancy_mean"],
-               "batches": snap["batches"],
-               "close_reasons": snap["close_reasons"],
-               "reduction_stalls": {k: snap["reduction_stalls"][k] for k in
-                                    ("eager_folds", "deferred_folds")},
-               "dispatch": {"launches": disp["dispatches"],
-                            "merged": disp["merged_dispatches"],
-                            "m_fill_mean": disp["m_fill_mean"],
-                            "m_occupancy_mean": disp["m_occupancy_mean"]},
-               "service_s_total": snap["service_s_total"],
-               "device_memory": memory}
-        if "controller" in snap:
-            out["controller_updates"] = snap["controller"]["updates"]
-            out["holdback"] = snap["holdback"]
+               "d_uniform": d_uniform, **cold, "warm": warm,
+               "programs": _program_census(cos, label),
+               **cos.program_stats()}
         if paths:
             stats = validate_chrome_trace(str(paths["trace"]))
-            check(stats["requests"] == served,
+            check(stats["requests"] == cold["served"],
                   f"{label}: the trace has {stats['requests']} request "
-                  f"chains for {served} served")
+                  f"chains for {cold['served']} served")
             mstats = validate_openmetrics(str(paths["metrics"]))
             out["trace"] = {"path": str(paths["trace"].relative_to(
                 OUT.parent)), **stats}
             out["metrics"] = {"path": str(paths["metrics"].relative_to(
                 OUT.parent)), **mstats}
-            out.update(_online_idle_share(dev, kw, wall))
+            out.update(_online_idle_share(dev, cos, kw, warm["wall_s"]))
         emit(out)
         outs.append(out)
+    del cos
+    emit({"phase": "online_memory", "before": before,
+          "after": _memory_in_use(dev)})
     return outs
 
 
@@ -1306,19 +1475,22 @@ def main():
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
     fused = phase_fused(dev, env["device"])
-    paper, paper_rows = phase_slice(dev, "paper")
+    _, paper_rows = phase_slice(dev, "paper")
     _, mixed_rows = phase_slice(dev, "mixed_eager_lazy", d_uniform=256,
                                 **MIXED)
-    phase_profile(dev)
+    # the kernels line's K1/K2 launches: the kernel events the profiler saw
+    # in a warm paper replay, the counters set to 0 just before it (and
+    # equal to them)
+    launched = phase_profile(dev)["census_by_profiler"]["events"]
     phase_online(dev, env, {"paper": paper_rows, "mixed": mixed_rows})
 
     rows = []
     for name, replaces, timed, launches, err in (
             ("limb_matmul", "src/repro/kernels/limb_matmul/kernel.py:44",
-             kern["limb_matmul"][0], paper["launches"]["limb_matmul"],
+             kern["limb_matmul"][0], launched["limb_matmul"],
              kern["max_abs_err"]["limb_matmul"]),
             ("mont_fold", "src/repro/kernels/mont_fold/kernel.py:35",
-             kern["mont_fold"][0], paper["launches"]["mont_fold"],
+             kern["mont_fold"][0], launched["mont_fold"],
              kern["max_abs_err"]["mont_fold"]),
             ("fused_ntt_tile", "src/repro/kernels/fused_ntt_tile/kernel.py:58",
              fused["fused_ntt_tile"][0], fused["launches"],

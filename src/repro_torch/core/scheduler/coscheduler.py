@@ -6,13 +6,18 @@ when there are several.  How the JAX package's mechanisms map here:
 
 * a ``Mesh`` per workload group becomes a ``torch.device`` per group (the
   group's first device; row-sharding one launch across GPUs is not ported);
-* the jit cache per ``(workload, d_bucket)`` becomes plain eager calls of the
-  engine — ``trace_counts[(w, d)]`` counts the distinct launch heights seen,
-  which is what a jit retrace count measures, so the ladder bound reads the
-  same;
-* ``copy_to_host_async`` becomes a ``non_blocking`` copy into a pinned host
-  buffer plus a CUDA event that ``gather`` waits on;
-* ``donate`` is recorded and does nothing.
+* the jit cache per ``(workload, d_bucket)`` becomes a cache of captured
+  programs (:mod:`repro_torch.core.scheduler.program`), one per launched
+  operand shape: on CUDA each is the engine's whole ``e2e`` (K1/K2 for
+  every pass and channel, BN254's ``rns_to_field``) as one CUDA graph, so
+  every dispatch replays one program per launch group.
+  ``trace_counts[(w, d)]`` counts the captures, as the JAX count counts the
+  retraces, so the ladder bounds it the same way;
+* ``copy_to_host_async`` becomes the program's copy of its static output
+  into a fresh pinned host buffer, enqueued on the replay's stream before
+  any later replay, plus a CUDA event that ``gather`` waits on;
+* ``donate`` is recorded only: the program's static input is the donated
+  buffer, written by every launch and owned by the program.
 
 The three levers are kept and stay bit-for-bit neutral: M-axis
 super-batching (``merge``), the row ladder (``row_ladder``), and the
@@ -28,6 +33,8 @@ import torch
 
 from repro_torch.core import limb_gemm as G
 from repro_torch.core import workloads as WK
+from repro_torch.core.scheduler.program import (E2EProgram, capture_pool,
+                                                host_operand)
 from repro_torch.core.scheduler.rectangular import StackedBatch, merge_operands
 from repro_torch.device import resolve_devices
 
@@ -171,12 +178,13 @@ class SliceCoScheduler:
         self.row_ladder = row_ladder
         self.merge_rows_max = (row_ladder[-1] if row_ladder
                                else merge_rows_max)
-        self.donate = donate       # recorded only: eager torch has no donation
+        # recorded only: each program's static input is the donated buffer
+        self.donate = donate
         self.host = host
         self._engines: dict = {}
-        # (workload, d_bucket) -> distinct launch heights seen; trace_counts
-        # holds their number (the JAX retrace count's counterpart).
-        self._heights: dict = {}
+        # (workload, d_bucket) -> {operand shape: E2EProgram}; trace_counts
+        # holds the number of captures per key (the JAX retrace count).
+        self._programs: dict = {}
         self.trace_counts: dict = {}
         self.dispatch_log: collections.deque = collections.deque(
             maxlen=DISPATCH_LOG_MAX)
@@ -231,32 +239,63 @@ class SliceCoScheduler:
             return (rows, d)
         return (rows, d, self.engine_for(workload, d).n_channels)
 
-    def _run(self, workload: str, d: int, operand: torch.Tensor):
-        key = (workload, d)
-        heights = self._heights.setdefault(key, set())
-        heights.add(operand.shape[0])
-        self.trace_counts[key] = len(heights)
-        return self.engine_for(workload, d).e2e(
-            operand, planes=self.device_planes_for(workload, d))
+    def capture(self, workload: str, d: int, shape: tuple) -> E2EProgram:
+        """A new program of ``(workload, d)`` at operand ``shape`` on the
+        group's device, outside the program cache (the launch census's
+        probe takes one this way)."""
+        return E2EProgram(self.engine_for(workload, d), shape,
+                          planes=self.device_planes_for(workload, d))
+
+    def jitted_for(self, workload: str, d: int) -> dict:
+        """The program cache of ``(workload, d_bucket)``: operand shape ->
+        :class:`E2EProgram`, filled by :meth:`program_for`."""
+        return self._programs.setdefault((workload, d), {})
+
+    def program_for(self, workload: str, d: int, shape: tuple) -> E2EProgram:
+        """The cached program of ``(workload, d)`` at ``shape``, captured
+        (and counted in ``trace_counts``) at first use."""
+        programs = self.jitted_for(workload, d)
+        prog = programs.get(shape)
+        if prog is None:
+            prog = programs[shape] = self.capture(workload, d, shape)
+            self.trace_counts[(workload, d)] = len(programs)
+        return prog
+
+    def _run(self, workload: str, d: int,
+             operand: torch.Tensor) -> E2EProgram:
+        """Run the program of ``operand``'s shape on it (a host int32
+        tensor, pinned on CUDA) and return the program, whose static
+        output holds the result until its next run."""
+        prog = self.program_for(workload, d, tuple(operand.shape))
+        prog.run(operand)
+        return prog
 
     def precompile(self, programs, n_c: int) -> int:
-        """Warm every ``(workload, d_bucket)`` at every rung (or at ``n_c``
-        without a ladder): builds engines, uploads planes and runs each shape
-        once.  Returns the number of new launch heights this added."""
+        """Capture every ``(workload, d_bucket)``'s program at every rung
+        (or at ``n_c`` without a ladder): builds engines, uploads planes and
+        captures each shape once.  Returns the number of new captures."""
         rungs = list(self.row_ladder) if self.row_ladder else [n_c]
         n_new = 0
         for workload, d in programs:
             key = (workload, d)
             before = self.trace_counts.get(key, 0)
-            dev = self.device_for(workload)
             for rung in rungs:
-                operand = torch.zeros(self.operand_shape(workload, d, rung),
-                                      dtype=torch.int32, device=dev)
-                self._run(workload, d, operand)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+                self.program_for(workload, d,
+                                 self.operand_shape(workload, d, rung))
             n_new += self.trace_counts.get(key, 0) - before
         return n_new
+
+    def program_stats(self) -> dict:
+        """Captures, their host seconds, and the memory of each CUDA
+        device's graph pool (:meth:`CapturePool.bytes`; the pool is the
+        process's, shared with other co-schedulers on the device)."""
+        progs = [p for cache in self._programs.values()
+                 for p in cache.values()]
+        return {"captures": len(progs),
+                "capture_s": sum(p.capture_s for p in progs),
+                "pool_bytes": {str(dev): capture_pool(dev).bytes()
+                               for dev in self.devices
+                               if dev.type == "cuda"}}
 
     # --- group planning + launch ----------------------------------------------
 
@@ -296,26 +335,13 @@ class SliceCoScheduler:
         eng = self.engine_for(group.workload, group.d_bucket)
         members = [self._member_operand(b, eng)
                    for _, b, _, _ in group.members]
-        rows = self.launch_rows(group.operand_rows)
-        if len(members) == 1 and members[0].shape[0] == rows:
-            operand_np = members[0]
-        else:
-            operand_np = merge_operands(members, n_rows=rows)
-        dev = self.device_for(group.workload)
-        # residues < 2**31: the int32 view carries the uint32 bits exactly
-        host_in = torch.from_numpy(np.ascontiguousarray(operand_np).view(np.int32))
-        if dev.type == "cuda":
-            host_in = host_in.pin_memory()
-        operand = host_in.to(dev, non_blocking=True)
-        out = self._run(group.workload, group.d_bucket, operand).to(torch.int32)
-        event = None
-        if dev.type == "cuda":
-            host_out = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
-            host_out.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-        else:
-            host_out = out
+        shape = self.operand_shape(group.workload, group.d_bucket,
+                                   group.operand_rows)
+        host_in, view = host_operand(shape,
+                                     self.device_for(group.workload))
+        merge_operands(members, out=view)
+        prog = self._run(group.workload, group.d_bucket, host_in)
+        host_out, event = prog.copy_out()
         tr = self.tracer
         if tr is not None:
             group.lid = tr.next_id()
@@ -323,12 +349,12 @@ class SliceCoScheduler:
                      f"launch:{group.workload}/d{group.d_bucket}",
                      tr.wall_now(), track="device",
                      args={"live_rows": group.live_rows,
-                           "launched_rows": int(operand_np.shape[0]),
+                           "launched_rows": shape[0],
                            "n_batches": len(group.members)})
         self.dispatch_log.append({
             "workload": group.workload, "d_bucket": group.d_bucket,
             "n_batches": len(group.members), "live_rows": group.live_rows,
-            "launched_rows": int(operand_np.shape[0]),
+            "launched_rows": shape[0],
             "donated": self.donate, "lid": group.lid,
             "devices": self.device_ids(group.workload)})
         return group, eng, host_out, event

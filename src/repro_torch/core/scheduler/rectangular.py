@@ -116,23 +116,26 @@ def stack_rows(reqs: list, d_bucket: int,
     return a
 
 
-def merge_operands(operands: list[np.ndarray],
-                   n_rows: int | None = None) -> np.ndarray:
-    """Concatenate same-class stacked operands along M into one tall operand.
+def merge_operands(operands: list[np.ndarray], out: np.ndarray) -> np.ndarray:
+    """Concatenate same-class stacked operands along M into ``out``, one
+    tall operand (the co-scheduler passes a launch's host operand).
 
     ``operands`` must share every trailing dimension (same ``(workload,
-    d_bucket)`` class guarantees it); ``n_rows`` > the concatenated height
-    appends all-zero rows, which is how the dispatch fast path pads a merged
-    super-batch up to its row-ladder rung.  Row semantics (Property 5.1) make
-    the merged launch bit-for-bit equal to the per-operand launches.
+    d_bucket)`` class guarantees it); the rows of ``out`` below the
+    concatenated height are zeroed, which is how the dispatch fast path pads
+    a merged super-batch up to its row-ladder rung.  Row semantics
+    (Property 5.1) make the merged launch bit-for-bit equal to the
+    per-operand launches.
     """
     total = sum(op.shape[0] for op in operands)
-    rows = total if n_rows is None else max(n_rows, total)
-    out = np.zeros((rows,) + operands[0].shape[1:], operands[0].dtype)
+    if out.shape[0] < total or out.shape[1:] != operands[0].shape[1:]:
+        raise ValueError(f"merge of {total} rows of {operands[0].shape[1:]} "
+                         f"into a buffer of shape {out.shape}")
     lo = 0
     for op in operands:
         out[lo:lo + op.shape[0]] = op
         lo += op.shape[0]
+    out[lo:] = 0
     return out
 
 

@@ -65,10 +65,11 @@ current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
 
 @dataclasses.dataclass
 class KernelCounter:
-    """Per-kernel counters.  ``calls`` counts every wrapper call on any
-    device (the launch census of the replay reads it); ``launches`` counts
-    CUDA launches only, and proves that a run on the card went through the
-    kernel."""
+    """Per-kernel counters.  ``calls`` counts every kernel call on any
+    device; ``launches`` counts CUDA launches only, and proves that a run on
+    the card went through the kernel.  A wrapper adds to them where it runs;
+    a replayed program (``core/scheduler/program.py``) adds the counts
+    its capture recorded, so both count kernel executions enqueued."""
 
     calls: int = 0
     launches: int = 0

@@ -9,7 +9,8 @@
   telemetry JSON, Chrome trace and OpenMetrics exports.
 
 On CUDA every staging-pass GEMM is the ``limb_matmul`` kernel and every fold
-the ``mont_fold`` kernel.  The JAX package's LM mode and its cluster flags
+the ``mont_fold`` kernel, and each launch group replays one captured CUDA
+graph of its class's whole e2e (BN254's reduction included).  The JAX package's LM mode and its cluster flags
 (``--hosts``, ``--fault-plan``, ``--device-parallel``, ``--shed-watermark``,
 ``--gossip-period-ms``) are not ported yet.
 
@@ -40,7 +41,8 @@ def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
     stacked batch, as the JAX package's ``serve_crypto``.  Runs on CUDA
     unless ``device="cpu"`` (or a given ``coscheduler``) says otherwise.
     ``validate`` runs the launch census at the first dispatch of every
-    ``(workload, d_bucket)``.
+    ``(workload, d_bucket)``: the K1/K2 calls recorded in the capture of its
+    program against the engine's ``fold_profile``.
     """
     trace = PoissonTrace(rate_hz=rate_hz, duration_s=duration_s,
                          uniform_degree=d_uniform, seed=seed).generate()
@@ -57,13 +59,12 @@ def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
             reqs = q.pop_batch(w, n_c)
             for batch in sched.plan_batches(reqs):
                 key = (w, batch.d_bucket)
-                census = validate and key not in validated
-                before = (K1.calls, K2.calls)
                 results.append(cos.dispatch(batch))
-                if census:
-                    check_launch_census(
-                        cos.engine_for(*key), K1.calls - before[0],
-                        K2.calls - before[1], f"{w}/d{batch.d_bucket}")
+                if validate and key not in validated:
+                    for prog in cos.jitted_for(*key).values():
+                        check_launch_census(
+                            prog.eng, prog.calls["limb_matmul"],
+                            prog.calls["mont_fold"], f"{w}/d{batch.d_bucket}")
                     validated.add(key)
                 n_ops += batch.n_c
     dt = time.time() - t0
@@ -257,7 +258,8 @@ def main():
                     help="pad launch heights up the rungs 8→16→…→MAX "
                          "(bounds the distinct launch heights per class)")
     ap.add_argument("--donate", action="store_true",
-                    help="recorded only: eager PyTorch donates nothing")
+                    help="recorded only: each captured program's static "
+                         "input is the donated buffer")
     ap.add_argument("--async-pipeline", action="store_true",
                     help="zero-sync dispatch: launch now, gather at the next "
                          "serving event")

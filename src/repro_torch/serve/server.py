@@ -12,8 +12,9 @@ load generator drive a virtual clock from trace timestamps (deterministic,
 faster than real time); live callers pass ``time.monotonic()``.  Dispatch
 itself is measured in wall time regardless, so service-time telemetry is
 real even under a virtual clock: on CUDA a dispatch's service time runs from
-the launch (host staging, the K1/K2 kernels, BN254's ``rns_to_field``) to the
-event that marks its result on the host.
+the launch (host staging, then one replay of the class's captured program:
+the K1/K2 kernels and BN254's ``rns_to_field``) to the event that marks its
+result on the host.
 
 Per-tenant results are bit-for-bit identical to the offline
 ``serve_crypto`` replay on the same trace: row semantics make each tenant's
@@ -23,8 +24,10 @@ bucketing, so only the grouping differs.
 This is the JAX package's ``repro.serve.server`` with three changes: the
 co-scheduler takes a ``device`` (``coscheduler_from_config``), the launch
 census replaces the HLO validator in ``_validate_once``, and
-``compilation_cache_dir`` is recorded only (the CUDA kernels are cached on
-disk by source hash; eager PyTorch has no program cache to point anywhere).
+``compilation_cache_dir`` is recorded only: the CUDA kernels are cached on
+disk by source hash, and the co-scheduler's programs are CUDA graphs, which
+do not persist across processes, so every process captures its own (warm
+start captures them at boot).
 """
 from __future__ import annotations
 
@@ -33,14 +36,11 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.core.scheduler.coscheduler import (SliceCoScheduler,
                                                     check_launch_census,
                                                     default_row_ladder)
 from repro_torch.core.scheduler.rectangular import packing_metrics
-from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1
-from repro_torch.kernels.mont_fold.kernel import COUNTER as K2
 from repro_torch.obs.alerts import AlertEngine, default_serve_rules
 from repro_torch.obs.ledger import PenaltyLedger, launch_cycles
 from repro_torch.obs.metrics import MetricsRegistry
@@ -142,10 +142,10 @@ class ServeConfig:
     reduction_by_workload: dict | None = None
     kappa: int | None = None
     d_tile: int | None = None
-    # warm start: (workload, d_bucket) pairs to run once at boot (engines
-    # built, planes uploaded) so the first dispatch of each listed class
-    # adds no new launch height (shapes are N_c-row operands; requires
-    # pad_rows — or a row ladder, whose rungs are all warmed instead).
+    # warm start: (workload, d_bucket) pairs whose programs are captured at
+    # boot (engines built, planes uploaded) so the first dispatch of each
+    # listed class captures nothing (shapes are N_c-row operands; requires
+    # pad_rows — or a row ladder, whose rungs are all captured instead).
     # None skips warm start.
     warm_start: list | None = None
     # dispatch fast path (all bit-for-bit neutral):
@@ -155,7 +155,8 @@ class ServeConfig:
     #     (8→16→…→row_ladder_max) so trace counts are bounded by the ladder
     #     size; the batcher then emits live-row (mergeable) operands and the
     #     co-scheduler pads once, on the merged operand.  None disables;
-    #   donate — recorded only: eager PyTorch donates no operand buffer;
+    #   donate — recorded only: each program's static input is the
+    #     donated buffer, written by every launch;
     #   async_pipeline — zero-sync two-phase dispatch: launch now, gather at
     #     the *next* serving event (pump/submit/drain), so the pump loop
     #     never blocks on a device→host copy between launches.  Queued
@@ -225,9 +226,9 @@ class ServeConfig:
     # reservoir forever (the default — serving runs here are bounded).
     latency_sketch_bound: int | None = None
     # The JAX package's persistent compile cache directory.  Recorded only:
-    # the CUDA kernels are already cached on disk by source hash, and eager
-    # PyTorch has no program cache to point anywhere.  The directory is not
-    # created.
+    # the CUDA kernels are already cached on disk by source hash, and the
+    # programs are CUDA graphs, which do not persist across processes.  The
+    # directory is not created.
     compilation_cache_dir: str | None = None
 
 
@@ -704,33 +705,28 @@ class CryptoServer:
     # --- dispatch -------------------------------------------------------------
 
     def _validate_once(self, batch):
-        """The launch census, once per (workload, d_bucket): one e2e of the
-        class's engine on a zero operand of the dispatched form (int32 on
-        the class's device, twiddle planes as uploaded and, with merging
-        on, the *maximal* super-batch height, the merge cap) must make
-        exactly the K1/K2 calls its ``fold_profile`` implies: a GEMM and a
-        fold per pass and channel when eager, one fold per window and
-        channel when lazy (the V6/V7 intent).  The probe calls the engine
-        directly, so it adds no launch height to ``trace_counts`` and no
-        line to ``dispatch_log``.  Raises on a mismatch."""
+        """The launch census, once per (workload, d_bucket): a program of
+        the dispatched form (int32 operand on the class's device, twiddle
+        planes as uploaded and, with merging on, the *maximal* super-batch
+        height, the merge cap) is captured, and the K1/K2 calls recorded in
+        its capture must be exactly those its ``fold_profile`` implies: a
+        GEMM and a fold per pass and channel when eager, one fold per window
+        and channel when lazy (the V6/V7 intent).  The probe is captured
+        outside the co-scheduler's program cache, so it adds nothing to
+        ``trace_counts`` and no line to ``dispatch_log``.  Raises on a
+        mismatch."""
         key = (batch.workload, batch.d_bucket)
         if key in self._validated:
             return
-        eng = self.cos.engine_for(batch.workload, batch.d_bucket)
         rows = (batch.operand.shape[0] if batch.operand is not None
                 else batch.n_c)
         if self.cos.merge:
             rows = max(rows, self.cos.merge_rows_max)
-        shape = self.cos.operand_shape(batch.workload, batch.d_bucket, rows)
-        # residues < 2**31 travel as int32 (CPU torch has no uint32
-        # arithmetic), as the co-scheduler's launches carry them
-        operand = torch.zeros(shape, dtype=torch.int32,
-                              device=self.cos.device_for(batch.workload))
-        before = (K1.calls, K2.calls)
-        eng.e2e(operand,
-                planes=self.cos.device_planes_for(batch.workload,
-                                                  batch.d_bucket))
-        check_launch_census(eng, K1.calls - before[0], K2.calls - before[1],
+        probe = self.cos.capture(
+            *key, self.cos.operand_shape(batch.workload, batch.d_bucket,
+                                         rows))
+        check_launch_census(probe.eng, probe.calls["limb_matmul"],
+                            probe.calls["mont_fold"],
                             f"{batch.workload}/d{batch.d_bucket}")
         self._validated.add(key)
 
