@@ -79,12 +79,38 @@ Phases, each printing one JSON line:
    percentiles from the telemetry and per workload, occupancy, the dispatch
    section, captures, peak device memory and the card's name and power
    limit; then ``online_memory``, the device memory in use and the live
-   programs before the phase and after it, its co-schedulers dropped.
+   programs before the phase and after it, its co-schedulers dropped;
+7. cluster — the multi-host cluster (``serve_crypto_cluster`` on the card,
+   every host a ``CryptoServer`` with its own co-scheduler and captured
+   programs, all behind one tenant-hash ingress) on the same paper trace in
+   three configurations, each run cold (fresh per-host co-schedulers) and
+   then warm (the same co-schedulers again): (a) ``cluster_paper``, four
+   hosts on the server defaults, which also writes the fleet's Chrome trace
+   and OpenMetrics text under ``chiprun_out/`` (cold) and is run once more
+   warm under torch.profiler for the device idle share; (b)
+   ``cluster_failover``, four hosts on the fast path of (b) above with host
+   1 killed at half the trace and recovered at 0.9 of it; (c)
+   ``cluster_device_parallel``, two hosts each pinned to its slice of the
+   card's devices (one card: both on ``cuda:0``).  Every served row is
+   checked against the slice replay (Dilithium also against the int64
+   oracle), and (b)'s and (c)'s against (a)'s; the K1/K2 launches against
+   the census summed over the hosts (each host's program runs, capture
+   warm-ups and census probes); the drain barrier must be complete with no
+   group in flight, the gossip's used staleness within its bound and no
+   request lost.  Each prints per-host requests and load imbalance, merged
+   latency percentiles (overall and per workload), the wall time, captures
+   and capture seconds per host, the graph pool's bytes, peak device memory
+   and, for (b), the failover counts and a gather-ring rescue (two hosts,
+   a depth-2 ring of launched groups on the killed one, both flights
+   gathered at its cordon and their rows checked), for (c), the
+   ``devices`` section and the dispatch-overlap audit.
 
-Three short calls run the first phase and stop: ``--k3`` adds K3's checks and
+Four short calls run the first phase and stop: ``--k3`` adds K3's checks and
 times (for a change to K3), ``--k2`` K2's checks, times and pass spans and
-K3's checks (for a change to the fold, which K3 shares), and ``--online`` the
-online phase, with the CPU replays of its two traces as the reference.
+K3's checks (for a change to the fold, which K3 shares), ``--online`` the
+online phase, with the CPU replays of its two traces as the reference, and
+``--cluster`` the cluster phase, with the CPU replay of the paper trace as
+the reference.
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
 code is not 0 and the last line is missing.  The last two lines are the
@@ -114,6 +140,8 @@ from repro_torch.core import ntt as NTT                          # noqa: E402
 from repro_torch.core import rns as R                            # noqa: E402
 from repro_torch.core import workloads as WK                     # noqa: E402
 from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E402
+from repro_torch.core.scheduler import TenantRequest             # noqa: E402
+from repro_torch.cluster import ClusterConfig, ClusterServer    # noqa: E402
 from repro_torch.core.scheduler.program import E2EProgram, host_operand  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
@@ -125,8 +153,9 @@ from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  
 from repro_torch.kernels.mont_fold.kernel import grid_blocks as k2_grid_blocks  # noqa: E402
 from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
-from repro_torch.launch.serve import serve_crypto, serve_crypto_online  # noqa: E402
+from repro_torch.launch.serve import serve_crypto, serve_crypto_cluster, serve_crypto_online  # noqa: E402
 from repro_torch.core.scheduler.coscheduler import expected_kernel_calls  # noqa: E402
+from repro_torch.device import partition_devices                # noqa: E402
 from repro_torch.obs import validate_chrome_trace, validate_openmetrics  # noqa: E402
 from repro_torch.serve import ServeConfig                       # noqa: E402
 from repro_torch.serve.server import coscheduler_from_config    # noqa: E402
@@ -158,6 +187,19 @@ ONLINE = {
                              controller=True, inflight_depth=2,
                              holdback_lambda=1.5), None, "paper"),
     "online_mixed_eager_lazy": (MIXED, 256, "mixed"),
+}
+# The cluster phase's configurations (serve_crypto_cluster keywords), on the
+# paper trace: (a) four hosts on the server defaults; (b) four hosts on (b)
+# of the online phase, host 1 killed at half the trace and recovered at 0.9
+# of it; (c) two hosts, each pinned to its slice of the card's devices.
+FAULT_PLAN = "kill@0.5:h1,recover@0.9:h1"
+CLUSTER = {
+    "cluster_paper": dict(hosts=4, gossip_period_s=0.002),
+    "cluster_failover": dict(hosts=4, gossip_period_s=0.002,
+                             fault_plan=FAULT_PLAN,
+                             **ONLINE["online_fastpath"][0]),
+    "cluster_device_parallel": dict(hosts=2, gossip_period_s=0.002,
+                                    device_parallel=True),
 }
 OUT = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -1235,12 +1277,10 @@ def _percentiles(xs) -> dict:
     return {f"p{q}_s": float(np.percentile(xs, q)) for q in (50, 95, 99)}
 
 
-def _online_cos(dev, kw: dict):
-    """The run's co-scheduler, built from its own config."""
-    cfg_keys = ("accum", "d_tile", "reduction_by_workload", "row_ladder_max")
-    return coscheduler_from_config(
-        ServeConfig(**{k: v for k, v in kw.items() if k in cfg_keys}),
-        device=dev)
+def _cos_config(kw: dict) -> ServeConfig:
+    """The co-scheduler's part of a run's server config."""
+    keys = ("accum", "d_tile", "reduction_by_workload", "row_ladder_max")
+    return ServeConfig(**{k: v for k, v in kw.items() if k in keys})
 
 
 def _online_run(dev, cos, label: str, kw: dict, d_uniform,
@@ -1318,17 +1358,17 @@ def _check_online_rows(label: str, load, ref: dict, oracle: dict) -> int:
     return sum(len(hs) for hs in by_d.values())
 
 
-def _online_idle_share(dev, cos, kw: dict, wall: float) -> dict:
-    """(a) once more on its warm co-scheduler under torch.profiler: the
-    device's busy time over the unprofiled warm run's wall time."""
+def _idle_share(dev, coses: list, wall: float, run) -> dict:
+    """``run()``, a warm run once more on ``coses``, under torch.profiler:
+    the device's busy time over the unprofiled warm run's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    captures = dict(cos.trace_counts)
+    captures = [dict(cos.trace_counts) for cos in coses]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve_crypto_online(duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED,
-                            validate=True, coscheduler=cos, device=dev, **kw)
+        run()
         torch.cuda.synchronize(dev)
-    check(cos.trace_counts == captures, "the profiled run captured a program")
+    check([cos.trace_counts for cos in coses] == captures,
+          "the profiled run captured a program")
     busy = sum(ev.self_device_time_total for ev in _kernel_events(prof)) / 1e6
     if not busy:
         return {"device_busy_s": None, "device_idle_share": None}
@@ -1411,7 +1451,7 @@ def phase_online(dev, env: dict, refs: dict):
         if label == "online_paper":
             paths = {"trace": OUT / "online_paper_trace.json.gz",
                      "metrics": OUT / "online_paper_metrics.om"}
-        cos = _online_cos(dev, kw)
+        cos = coscheduler_from_config(_cos_config(kw), device=dev)
         cold = _online_summary(label, _online_run(
             dev, cos, label, kw, d_uniform, paths), refs[ref], oracle)
         warm = _online_summary(f"{label} warm", _online_run(
@@ -1433,12 +1473,279 @@ def phase_online(dev, env: dict, refs: dict):
                 OUT.parent)), **stats}
             out["metrics"] = {"path": str(paths["metrics"].relative_to(
                 OUT.parent)), **mstats}
-            out.update(_online_idle_share(dev, cos, kw, warm["wall_s"]))
+            out.update(_idle_share(dev, [cos], warm["wall_s"], lambda: (
+                serve_crypto_online(duration_s=0.25, rate_hz=4096, n_c=8,
+                                    seed=SEED, validate=True, coscheduler=cos,
+                                    device=dev, **kw))))
         emit(out)
         outs.append(out)
     del cos
     emit({"phase": "online_memory", "before": before,
           "after": _memory_in_use(dev)})
+    return outs
+
+
+def _cluster_coses(dev, kw: dict) -> list:
+    """Fresh per-host co-schedulers, built as ``ClusterServer`` builds them:
+    from the run's config, on ``dev`` or, under ``device_parallel``, on each
+    host's slice of its devices."""
+    cfg = _cos_config(kw)
+    parts = (partition_devices(kw["hosts"], devices=dev)
+             if kw.get("device_parallel") else None)
+    return [coscheduler_from_config(cfg, host=h,
+                                    device=parts[h] if parts else dev)
+            for h in range(kw["hosts"])]
+
+
+def _capture_s(cos) -> float:
+    return cos.program_stats()["capture_s"]
+
+
+def _cluster_run(dev, coses: list, label: str, kw: dict,
+                 paths: dict | None) -> dict:
+    """One ``serve_crypto_cluster`` run of the paper trace on the card, each
+    host on its co-scheduler of ``coses`` (each program run counted per
+    host and class), with the kernel counters at 0 and peak memory reset
+    just before it; returns the run and its counts, checked against the
+    census summed over the hosts."""
+    runs = [{} for _ in coses]
+
+    def counting(cos, counts):
+        run = cos._run
+
+        def counted(workload, d, operand):
+            counts[(workload, d)] = counts.get((workload, d), 0) + 1
+            return run(workload, d, operand)
+        return counted
+
+    def timing(cos, spent):
+        capture = cos.capture
+
+        def timed(*args):
+            prog = capture(*args)
+            spent.append(prog.capture_s)
+            return prog
+        return timed
+
+    spent = [[] for _ in coses]
+    for cos, counts, s in zip(coses, runs, spent):
+        cos._run = counting(cos, counts)
+        cos.capture = timing(cos, s)
+    captures = [dict(cos.trace_counts) for cos in coses]
+    capture_s = [_capture_s(cos) for cos in coses]
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    _reset_counters()
+    try:
+        load, snap, wall = serve_crypto_cluster(
+            duration_s=0.25, rate_hz=4096, n_c=8, seed=SEED, validate=True,
+            device=dev, coscheduler_factory=lambda h: coses[h],
+            trace_out=paths and str(paths["trace"]),
+            metrics_out=paths and str(paths["metrics"]), **kw)
+        torch.cuda.synchronize(dev)
+    finally:
+        for cos in coses:
+            del cos._run, cos.capture
+    launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+                "fused_ntt_tile": K3.launches}
+    # every class a host dispatched ran one census probe on that host
+    want = {"limb_matmul": 0, "mont_fold": 0}
+    for cos, counts, before in zip(coses, runs, captures):
+        for k, v in _census(cos, counts, before, probes=1).items():
+            want[k] += v
+    check(launches == {**want, "fused_ntt_tile": 0} and all(want.values()),
+          f"{label}: launches {launches} != the census summed over the "
+          f"hosts {want} (and no K3)")
+    per_host = [s["dispatch"]["dispatches"] for s in snap["per_host"]]
+    check([sum(c.values()) for c in runs] == per_host,
+          f"{label}: program runs per host {[sum(c.values()) for c in runs]}"
+          f" != the telemetry's dispatches {per_host}")
+    new = [sum(c.trace_counts.values()) - sum(b.values())
+           for c, b in zip(coses, captures)]
+    new_s = [_capture_s(c) - s0 for c, s0 in zip(coses, capture_s)]
+    probes = [len(t) - n for t, n in zip(spent, new)]
+    check(probes == [len(c) for c in runs],
+          f"{label}: census probes per host {probes}, classes dispatched "
+          f"{[len(c) for c in runs]}")
+    return {"load": load, "snap": snap, "wall": wall,
+            "launches": launches, "want": want,
+            "captures": new, "capture_s": new_s,
+            # census probes: the captures outside the program cache
+            "probes": probes,
+            "probe_s": [sum(t) - s0 for t, s0 in zip(spent, new_s)],
+            "memory": {"resident_before_bytes": resident,
+                       "max_allocated_bytes":
+                           torch.cuda.max_memory_allocated(dev),
+                       "max_reserved_bytes":
+                           torch.cuda.max_memory_reserved(dev)}}
+
+
+def _cluster_summary(label: str, run: dict, ref: dict, oracle: dict) -> dict:
+    """The checks and the figures of one ``_cluster_run``."""
+    load, snap = run["load"], run["snap"]
+    m = snap["merged"]
+    served = sum(h.done() and not h.rejected for h in load.handles)
+    dropped = len(load.handles) - served - len(load.rejected)
+    check(dropped == 0 and served == m["requests_served"] > 0,
+          f"{label}: {dropped} requests neither served nor rejected")
+    dil_rows = _check_online_rows(label, load, ref, oracle)
+    bar, gossip, fo = snap["drain_barrier"], snap["gossip"], snap["failover"]
+    check(bar["complete"] and bar["inflight_groups"] == 0,
+          f"{label}: drain barrier {bar}")
+    check(gossip["used_staleness_max_s"] <= gossip["staleness_bound_s"],
+          f"{label}: gossip used a digest {gossip['used_staleness_max_s']} s "
+          f"old, past its bound {gossip['staleness_bound_s']} s")
+    check(fo["lost"] == 0 and fo["limbo_pending"] == 0,
+          f"{label}: {fo['lost']} requests lost, {fo['limbo_pending']} in "
+          f"limbo")
+    by_workload = {}
+    for h in load.handles:
+        if not h.rejected:
+            by_workload.setdefault(h.request.workload, []).append(h.latency_s)
+    return {"served": served, "rejected": len(load.rejected),
+            "dropped": dropped, "rows_checked": served,
+            "dilithium_oracle_rows": dil_rows, "wrong_rows": 0,
+            "wall_s": run["wall"], "ops_per_s": served / run["wall"],
+            "launches": run["launches"], "census_launches": run["want"],
+            "census": "passed",
+            "per_host_requests": m["load_imbalance"]["per_host_requests"],
+            "load_imbalance": {k: m["load_imbalance"][k]
+                               for k in ("max_over_mean", "cv")},
+            "per_host_dispatches": [s["dispatch"]["dispatches"]
+                                    for s in snap["per_host"]],
+            "latency": {k: m["latency"][k]
+                        for k in ("p50_s", "p95_s", "p99_s", "mean_s",
+                                  "max_s", "merged_exact")},
+            "latency_by_workload": {w: _percentiles(v)
+                                    for w, v in by_workload.items()},
+            "batches": m["batches"], "close_reasons": m["close_reasons"],
+            "dispatch": {"launches": m["dispatch"]["dispatches"],
+                         "merged": m["dispatch"]["merged_dispatches"]},
+            "captures_per_host": run["captures"],
+            "capture_s_per_host": run["capture_s"],
+            "probes_per_host": run["probes"],
+            "probe_s_per_host": run["probe_s"],
+            "gossip": {k: gossip[k] for k in
+                       ("publishes", "views", "stale_drops",
+                        "used_staleness_max_s", "staleness_bound_s")},
+            "drain_barrier": bar,
+            "failover": {k: fo[k] for k in
+                         ("replayed", "recovered", "deduped",
+                          "limbo_delivered", "sheds", "lost")}
+                        | {"cordons": fo["summary"]["cordons"],
+                           "kills": fo["summary"]["kills"],
+                           "recovers": fo["summary"]["recovers"]},
+            "device_memory": run["memory"]}
+
+
+def _cluster_rescue(dev) -> dict:
+    """The gather-ring rescue on the card: two hosts built by
+    ``ClusterServer`` itself, n_c = 1, async pipeline with a depth-2 ring;
+    host 1 launches four Dilithium d = 64 groups and is killed with the
+    newest two still in flight, and the silence-driven cordon must gather
+    both (each host buffer after its CUDA event), resolve their handles
+    with the int64 oracle's rows and replay nothing."""
+    cluster = ClusterServer(ClusterConfig(
+        n_hosts=2, fault_plan="kill@0.0005:h1", device=dev,
+        serve=ServeConfig(n_c=1, max_age_s=10.0, validate=False,
+                          async_pipeline=True, inflight_depth=2)))
+    rng = np.random.default_rng(SEED + 18)
+    handles, tid = [], 0
+    for i in range(4):
+        while cluster.router.host_for(tid) != 1:
+            tid += 1
+        coeffs = rng.integers(0, Q, 64, dtype=np.int64).astype(np.uint32)
+        handles.append(cluster.submit(
+            TenantRequest(tid, "dilithium", 64, 1e-4 * i, coeffs),
+            now=1e-4 * i))
+        tid += 1
+    in_flight = cluster.hosts[1].inflight_groups
+    pending = sum(not h.done() for h in handles)
+    check(in_flight == 2 and pending == 2,
+          f"rescue: {in_flight} groups in flight, {pending} handles pending")
+    cluster.pump(0.006)                  # kill applied, silence → cordon
+    fo = cluster.failover
+    check(fo.recovered == 2 and fo.replayed == 0 and fo.lost() == 0
+          and cluster.hosts[1].inflight_groups == 0,
+          f"rescue: recovered {fo.recovered}, replayed {fo.replayed}, "
+          f"lost {fo.lost()}")
+    oracle = NTT.ntt_matrix(64, Q, negacyclic=True).astype(np.int64)
+    for h in handles:
+        want = ((h.request.coeffs.astype(np.int64) @ oracle) % Q)
+        check(h.done() and not h.rejected
+              and np.array_equal(h.result(), want.astype(np.uint32)),
+              f"rescue: tenant {h.request.tenant_id} differs from the oracle")
+    cluster.drain(0.01)
+    return {"recovered": fo.recovered, "replayed": fo.replayed,
+            "lost": fo.lost(), "rows_checked": len(handles),
+            "device_ids": [e["device_ids"] for e in fo.events
+                           if e["kind"] == "cordon"]}
+
+
+def phase_cluster(dev, env: dict, ref: dict):
+    """The cluster on the card in the three configurations of ``CLUSTER``,
+    each run cold (fresh per-host co-schedulers) and warm (the same
+    co-schedulers again), each checked row by row against the slice replay
+    and launch by launch against the census summed over its hosts; (b)'s
+    and (c)'s rows also against (a)'s."""
+    OUT.mkdir(exist_ok=True)
+    oracle, outs, paper = {}, [], None
+    for label, kw in CLUSTER.items():
+        paths = None
+        if label == "cluster_paper":
+            paths = {"trace": OUT / "cluster_paper_trace.json.gz",
+                     "metrics": OUT / "cluster_paper_metrics.om"}
+        coses = _cluster_coses(dev, kw)
+        cold_run = _cluster_run(dev, coses, label, kw, paths)
+        cold = _cluster_summary(label, cold_run, ref, oracle)
+        warm_run = _cluster_run(dev, coses, f"{label} warm", kw, None)
+        warm = _cluster_summary(f"{label} warm", warm_run, ref, oracle)
+        check(not any(warm["captures_per_host"]),
+              f"{label}: the warm run captured {warm['captures_per_host']}")
+        for run in (cold_run, warm_run):
+            outputs = run["load"].outputs
+            if paper is None:
+                paper = outputs
+            check(outputs.keys() == paper.keys() and all(
+                np.array_equal(row, paper[tid])
+                for tid, row in outputs.items()),
+                f"{label}: rows differ from cluster_paper's")
+        snap = cold_run["snap"]
+        out = {"phase": "cluster", "label": label,
+               "nvidia_smi": env["nvidia_smi"],
+               "config": {k: v for k, v in kw.items()}, **cold,
+               "warm": warm,
+               "programs": sum(_program_census(c, f"{label} h{h}")
+                               for h, c in enumerate(coses)),
+               "pool_bytes": coses[0].program_stats()["pool_bytes"],
+               "devices": snap["devices"]}
+        if kw.get("device_parallel"):
+            out["dispatch_overlap"] = snap["dispatch_overlap"]
+        if kw.get("fault_plan"):
+            out["rescue"] = _cluster_rescue(dev)
+            check(cold["failover"]["kills"] == 1
+                  and cold["failover"]["recovers"] == 1
+                  and cold["failover"]["cordons"] >= 1,
+                  f"{label}: the fault plan did not run: {cold['failover']}")
+        if paths:
+            stats = validate_chrome_trace(str(paths["trace"]))
+            check(stats["requests"] == cold["served"],
+                  f"{label}: the trace has {stats['requests']} request "
+                  f"chains for {cold['served']} served")
+            out["trace"] = {"path": str(paths["trace"].relative_to(
+                OUT.parent)), **stats}
+            out["metrics"] = {"path": str(paths["metrics"].relative_to(
+                OUT.parent)),
+                **validate_openmetrics(str(paths["metrics"]))}
+            out.update(_idle_share(dev, coses, warm["wall_s"], lambda: (
+                serve_crypto_cluster(duration_s=0.25, rate_hz=4096, n_c=8,
+                                     seed=SEED, validate=True, device=dev,
+                                     coscheduler_factory=lambda h: coses[h],
+                                     **kw))))
+        emit(out)
+        outs.append(out)
     return outs
 
 
@@ -1460,6 +1767,11 @@ def main():
         # from the CPU replays of its two traces
         phase_online(dev, env, {"paper": _cpu_rows(),
                                 "mixed": _cpu_rows(256, **MIXED)})
+        return
+    if sys.argv[1:] == ["--cluster"]:
+        # a short call: the build and the cluster phase, its reference rows
+        # from the CPU replay of the paper trace
+        phase_cluster(dev, env, _cpu_rows())
         return
     if sys.argv[1:] == ["--k2"]:
         # a short call: the build, K2's checks, times and pass spans, and
@@ -1483,6 +1795,7 @@ def main():
     # equal to them)
     launched = phase_profile(dev)["census_by_profiler"]["events"]
     phase_online(dev, env, {"paper": paper_rows, "mixed": mixed_rows})
+    phase_cluster(dev, env, paper_rows)
 
     rows = []
     for name, replaces, timed, launches, err in (

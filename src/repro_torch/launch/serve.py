@@ -6,17 +6,27 @@
   dispatch of every class;
 * ``--mode crypto-online``: the :mod:`repro_torch.serve` runtime — live
   submit → admission → continuous batcher → dispatch closed loop with
-  telemetry JSON, Chrome trace and OpenMetrics exports.
+  telemetry JSON, Chrome trace and OpenMetrics exports.  With ``--hosts N``
+  (N > 1) it serves an N-host :mod:`repro_torch.cluster` instead:
+  tenant-hash ingress, gossip (``--gossip-period-ms``), host-failure
+  injection and recovery (``--fault-plan``, ``--shed-watermark``), the
+  two-phase drain barrier, and with ``--device-parallel`` each host pinned
+  to its own slice of the devices.
 
 On CUDA every staging-pass GEMM is the ``limb_matmul`` kernel and every fold
 the ``mont_fold`` kernel, and each launch group replays one captured CUDA
-graph of its class's whole e2e (BN254's reduction included).  The JAX package's LM mode and its cluster flags
-(``--hosts``, ``--fault-plan``, ``--device-parallel``, ``--shed-watermark``,
-``--gossip-period-ms``) are not ported yet.
+graph of its class's whole e2e (BN254's reduction included); in cluster
+mode every host captures its own programs.  The JAX package's LM mode is
+not ported yet.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto-online \
         --device cpu --duration 0.01 --rate 1024 --max-age-ms 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto-online \
+        --device cpu --hosts 3 --duration 0.01 --rate 1024 --max-age-ms 2 \
+        --fault-plan kill@0.5:h1,recover@0.9:h1
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto-online \
+        --device cuda --hosts 4 --duration 0.25 --rate 4096
 """
 from __future__ import annotations
 
@@ -156,6 +166,162 @@ def serve_crypto_online(*, duration_s=0.05, rate_hz=2048, n_c=8,
     return load, snap, dt
 
 
+def serve_crypto_cluster(*, hosts=2, duration_s=0.05, rate_hz=2048, n_c=8,
+                         max_age_s=0.005, d_uniform=None, seed=0,
+                         validate=True, accum="fp32_mantissa",
+                         reduction="eager", reduction_by_workload=None,
+                         kappa=None, d_tile=None, max_pending=1024,
+                         tenant_rate_hz=None, slo_deadline_s=None,
+                         occupancy_close=None, gossip_period_s=0.002,
+                         gossip_staleness_factor=2.0, pinned=None,
+                         merge_dispatch=True, row_ladder_max=None,
+                         donate=False, async_pipeline=False,
+                         warm_start=None, controller=False,
+                         holdback_lambda=0.0, inflight_depth=1,
+                         compilation_cache_dir=None,
+                         telemetry_out=None, trace=None, trace_out=None,
+                         metrics_out=None, metrics_period_s=0.005,
+                         deterministic_timing=False,
+                         realtime=False, coscheduler_factory=None,
+                         arrival_batch=None, columnar_admission=True,
+                         fault_plan=None, shed_watermark=None,
+                         device_parallel=False, device="cuda"):
+    """Closed loop over an N-host sharded cluster: tenant-hash ingress →
+    per-host admission (gossip-informed SLO gate) → per-host continuous
+    batcher → co-scheduled dispatch → two-phase drain barrier → merged
+    telemetry, as the JAX package's ``serve_crypto_cluster``.  Returns
+    ``(load, snapshot, seconds)``.
+
+    Every host's co-scheduler is built on ``device`` (CUDA unless
+    ``device="cpu"``; without a GPU the default raises, nothing falls
+    back), unless ``coscheduler_factory(host)`` builds it; under
+    ``device_parallel`` each host gets its slice of ``device``'s devices.
+    ``trace`` overrides the Poisson trace; ``trace_out`` switches
+    request-lifecycle tracing on and writes the merged fleet Chrome-trace
+    JSON there.
+
+    ``fault_plan`` injects deterministic host failures: a
+    ``"kill@T:hN,recover@T:hN,pause@T:hN"`` spec (string times are
+    *fractions of the run duration* — ``kill@0.5:h1`` kills host 1 mid-run
+    — and are scaled here) or a pre-built
+    :class:`repro_torch.cluster.FaultPlan` with absolute virtual-clock
+    times.  ``shed_watermark`` arms watermark-gated load shedding during
+    failover redistribution transients (fraction of ``max_pending``)."""
+    from repro_torch.cluster import ClusterConfig, ClusterServer, FaultPlan
+    from repro_torch.core.scheduler import PoissonTrace
+    from repro_torch.serve import LoadGenerator, ServeConfig
+
+    if isinstance(fault_plan, str):
+        fault_plan = FaultPlan.parse(fault_plan).scaled(duration_s)
+
+    serve_cfg = ServeConfig(
+        n_c=n_c, max_age_s=max_age_s, validate=validate, accum=accum,
+        max_pending=max_pending, reduction=reduction,
+        reduction_by_workload=reduction_by_workload, kappa=kappa,
+        d_tile=d_tile, tenant_rate_hz=tenant_rate_hz,
+        slo_deadline_s=slo_deadline_s, occupancy_close=occupancy_close,
+        merge_dispatch=merge_dispatch, row_ladder_max=row_ladder_max,
+        donate=donate, async_pipeline=async_pipeline, warm_start=warm_start,
+        controller=controller, holdback_lambda=holdback_lambda,
+        inflight_depth=inflight_depth,
+        compilation_cache_dir=compilation_cache_dir,
+        columnar_admission=columnar_admission,
+        tracing=trace_out is not None,
+        metrics=metrics_out is not None,
+        metrics_period_s=metrics_period_s,
+        deterministic_timing=deterministic_timing)
+    cluster = ClusterServer(
+        ClusterConfig(n_hosts=hosts, gossip_period_s=gossip_period_s,
+                      gossip_staleness_factor=gossip_staleness_factor,
+                      pinned=pinned, fault_plan=fault_plan,
+                      shed_watermark=shed_watermark,
+                      device_parallel=device_parallel, serve=serve_cfg,
+                      device=device),
+        coscheduler_factory=coscheduler_factory)
+    gen = LoadGenerator(
+        trace if trace is not None else
+        PoissonTrace(rate_hz=rate_hz, duration_s=duration_s,
+                     uniform_degree=d_uniform, seed=seed),
+        seed=seed, accum=accum)
+    t0 = time.time()
+    load = gen.run(cluster, realtime=realtime, arrival_batch=arrival_batch)
+    dt = time.time() - t0
+    snap = (cluster.write_json(telemetry_out) if telemetry_out
+            else cluster.snapshot())
+    if trace_out:
+        cluster.write_trace(trace_out)
+    if metrics_out:
+        cluster.write_metrics(metrics_out)
+    return load, snap, dt
+
+
+def _print_cluster(args, load, snap, dt):
+    m = snap["merged"]
+    served = sum(1 for h in load.handles if h.done() and not h.rejected)
+    print(f"cluster[{args.hosts} hosts]: served {served}/"
+          f"{len(load.handles)} requests ({len(load.rejected)} rejected) "
+          f"in {dt:.2f}s wall on {args.device}, {m['batches']} batches "
+          f"[{', '.join(f'{k}:{v}' for k, v in m['close_reasons'].items())}]")
+    imb = m["load_imbalance"]
+    print(f"per-host requests {imb['per_host_requests']} "
+          f"(max/mean {imb['max_over_mean']:.2f}, cv {imb['cv']:.2f}); "
+          f"occupancy K={m['k_occupancy_mean']:.3f} "
+          f"M={m['m_occupancy_mean']:.3f}")
+    g = snap["gossip"]
+    print(f"gossip: {g['publishes']} publishes, {g['views']} views, "
+          f"{g['stale_drops']} stale drops, "
+          f"used staleness max {g['used_staleness_max_s']*1e3:.2f}ms "
+          f"(bound {g['staleness_bound_s']*1e3:.2f}ms)")
+    lat = m["latency"]
+    print(f"latency (merged, exact={lat['merged_exact']}): "
+          f"p50={lat['p50_s']*1e3:.2f}ms p95={lat['p95_s']*1e3:.2f}ms "
+          f"p99={lat['p99_s']*1e3:.2f}ms")
+    bar = snap["drain_barrier"]
+    print(f"drain barrier: {bar['hosts']} hosts quiesced → "
+          f"{bar['batches_flushed']} batches flushed, "
+          f"complete={bar['complete']}, "
+          f"in-flight={bar['inflight_groups']}; kernel launches "
+          f"limb_matmul={K1.launches} mont_fold={K2.launches}")
+    if args.device_parallel:
+        dv, ov = snap["devices"], snap["dispatch_overlap"]
+        print(f"devices: per-host {dv['per_host']} "
+              f"({dv['distinct']} distinct); overlap: "
+              f"{ov['launches']} launches, concurrency "
+              f"mean {ov['launch_concurrency_mean']:.2f} / "
+              f"max {ov['launch_concurrency_max']}, cross-host queue "
+              f"share {ov['cross_host_queue_share']:.3f}")
+    if args.fault_plan or args.shed_watermark is not None:
+        fo = snap["failover"]
+        s = fo["summary"]
+        print(f"failover: {s['kills']} kills / {s['pauses']} pauses / "
+              f"{s['recovers']} recovers → {s['cordons']} cordons; "
+              f"requests replayed={fo['replayed']} "
+              f"recovered={fo['recovered']} deduped={fo['deduped']} "
+              f"shed={fo['sheds']} diverted={fo['diverted']} "
+              f"lost={fo['lost']} (must be 0)")
+    if args.controller:
+        ctl, hb = m["controller"], m["holdback"]
+        print(f"controller[{ctl['hosts']} hosts]: {ctl['updates']} "
+              f"updates, m-occ EWMA mean "
+              f"{ctl['m_occupancy_ewma_mean']:.3f}, top rung "
+              f"{ctl['target_rows_max']}, age max "
+              f"{ctl['max_age_s_max']*1e3:.1f}ms; holdback "
+              f"{hb['held']} held → {hb['wins']} wins / "
+              f"{hb['losses']} losses / {hb['flushed']} flushed")
+    if args.metrics_out:
+        met, al = m.get("metrics", {}), m.get("alerts", {})
+        fired = sum(r["fired"] for r in al.get("rules", {}).values())
+        print(f"metrics: {met.get('scrapes', 0)} scrapes / "
+              f"{met.get('series', 0)} series across "
+              f"{met.get('hosts', 0)} hosts; alerts: "
+              f"{al.get('events_total', 0)} transitions, {fired} firings "
+              f"→ {args.metrics_out}")
+    if args.telemetry_out:
+        print(f"cluster telemetry JSON → {args.telemetry_out}")
+    if args.trace_out:
+        print(f"fleet trace → {args.trace_out} (open in ui.perfetto.dev)")
+
+
 def _print_online(args, load, snap, dt):
     lat = snap["latency"]
     print(f"online: served {load.n_served}/{len(load.handles)} requests "
@@ -217,6 +383,29 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default), 'cuda:N' or 'cpu'")
     ap.add_argument("--max-age-ms", type=float, default=5.0)
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="shard crypto-online serving across N simulated "
+                         "host slices (tenant-hash ingress + gossip + "
+                         "distributed drain barrier)")
+    ap.add_argument("--gossip-period-ms", type=float, default=2.0,
+                    help="queue-depth digest exchange period (cluster mode)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic host-failure injection (cluster "
+                         "mode): comma-separated kill@T:hN / pause@T:hN / "
+                         "recover@T:hN events, T a fraction of the run "
+                         "duration — e.g. 'kill@0.5:h1,recover@0.9:h1'")
+    ap.add_argument("--shed-watermark", type=float, default=None,
+                    help="arm watermark load shedding during failover "
+                         "transients: fraction of max-pending above which "
+                         "non-sticky tenants divert (power-of-two) and "
+                         "sticky ones shed")
+    ap.add_argument("--device-parallel", action="store_true",
+                    help="partition --device's devices across the host "
+                         "slices and pin each host's programs/operands/"
+                         "twiddle planes to its own slice (cluster mode; "
+                         "with fewer devices than hosts, round-robin; "
+                         "'cuda' names the current card only, "
+                         "serve_crypto_cluster(device=None) every card)")
     ap.add_argument("--tenant-rate", type=float, default=None,
                     help="per-tenant token-bucket rate (req/s)")
     ap.add_argument("--slo-ms", type=float, default=None,
@@ -225,12 +414,12 @@ def main():
                     help="write the telemetry snapshot JSON here")
     ap.add_argument("--trace-out", default=None,
                     help="record request-lifecycle tracing and write the "
-                         "Chrome-trace/Perfetto JSON here (crypto-online; "
-                         "open in ui.perfetto.dev)")
+                         "Chrome-trace/Perfetto JSON here (crypto-online "
+                         "and cluster modes; open in ui.perfetto.dev)")
     ap.add_argument("--metrics-out", default=None,
                     help="scrape continuous metrics + run the alert engine "
                          "and write the OpenMetrics exposition here "
-                         "(crypto-online; .gz compresses)")
+                         "(crypto-online and cluster modes; .gz compresses)")
     ap.add_argument("--metrics-period-ms", type=float, default=5.0,
                     help="serving-clock scrape cadence for --metrics-out")
     ap.add_argument("--metrics-port", type=int, default=None,
@@ -296,6 +485,33 @@ def main():
                      f", e.g. 'dilithium=lazy' (got "
                      f"{args.reduction_by_workload!r})")
 
+    if args.mode == "crypto-online" and args.hosts > 1:
+        load, snap, dt = serve_crypto_cluster(
+            hosts=args.hosts, duration_s=args.duration, rate_hz=args.rate,
+            n_c=args.n_c, max_age_s=args.max_age_ms / 1e3, seed=args.seed,
+            tenant_rate_hz=args.tenant_rate,
+            slo_deadline_s=None if args.slo_ms is None else args.slo_ms / 1e3,
+            accum=args.accum, reduction=args.reduction,
+            reduction_by_workload=reduction_by_workload,
+            kappa=args.kappa, d_tile=args.d_tile,
+            gossip_period_s=args.gossip_period_ms / 1e3,
+            merge_dispatch=not args.no_merge,
+            row_ladder_max=args.row_ladder_max, donate=args.donate,
+            async_pipeline=args.async_pipeline,
+            controller=args.controller,
+            holdback_lambda=args.holdback_lambda,
+            inflight_depth=args.inflight_depth,
+            compilation_cache_dir=args.compilation_cache_dir,
+            telemetry_out=args.telemetry_out, trace_out=args.trace_out,
+            metrics_out=args.metrics_out,
+            metrics_period_s=args.metrics_period_ms / 1e3,
+            deterministic_timing=args.deterministic_timing,
+            realtime=args.realtime, arrival_batch=args.arrival_batch,
+            columnar_admission=not args.scalar_admission,
+            fault_plan=args.fault_plan, shed_watermark=args.shed_watermark,
+            device_parallel=args.device_parallel, device=args.device)
+        _print_cluster(args, load, snap, dt)
+        return
     if args.mode == "crypto-online":
         load, snap, dt = serve_crypto_online(
             duration_s=args.duration, rate_hz=args.rate, n_c=args.n_c,

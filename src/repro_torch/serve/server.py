@@ -363,15 +363,15 @@ class CryptoServer:
         self._req_span_names: dict[str, str] = {}
         self._validated: set[tuple] = set()
         self._draining = False
-        # Cluster hook: when set by a cluster layer (the JAX package's
-        # repro.cluster; not ported yet), called as fn(now) and must return
-        # the per-host-equivalent cluster queue depth (or None when no
-        # sufficiently fresh gossip digest exists).  The SLO gate
-        # then operates on bounded-staleness *cluster* state.
+        # Cluster hook: when set (by repro_torch.cluster), called as
+        # fn(now) and must return the per-host-equivalent cluster queue
+        # depth (or None when no sufficiently fresh gossip digest exists).
+        # The SLO gate then operates on bounded-staleness *cluster* state.
         self.cluster_depth_fn = None
         # Cluster hooks: the owning host slice's id and the fleet-shared
-        # DispatchOverlapAuditor (both set by a cluster layer; None when this
-        # server runs standalone — the hot path then pays one ``is None``).
+        # DispatchOverlapAuditor (both set by repro_torch.cluster; None when
+        # this server runs standalone — the hot path then pays one
+        # ``is None``).
         self.host_id = self.cos.host
         self.dispatch_auditor = None
         self.warm_traces = 0
@@ -619,7 +619,7 @@ class CryptoServer:
         self._dispatch(closed, now, final=True)
         return len(closed)
 
-    # --- failover (a cluster layer's failover drives these) --------------------
+    # --- failover (repro_torch.cluster.failover drives these) -----------------
 
     def recover_inflight(self, now: float) -> int:
         """Gather-ring rescue after a host death: force-gather every launch

@@ -4,8 +4,8 @@ the unit tests of ``tests/test_controller.py`` against the port's modules,
 on the CPU.  A controller of each package fed the same seeded
 ``observe_dispatch`` sequence must take the same decisions.
 
-Left out: the cluster drain barrier and cluster parity (they wait for the
-cluster slice), the JAX compilation cache (the port records
+Left out: the cluster drain barrier and cluster parity (in
+``tests/test_torch_cluster.py``), the JAX compilation cache (the port records
 ``compilation_cache_dir`` only, tested here) and the ``perf_report``
 script's tests, which read the JAX package's benchmark records.
 """
@@ -269,7 +269,7 @@ def test_ring_holds_k_flights_and_drain_retires_all():
 def test_ring_splits_per_class_and_drain_retires_all():
     """Bursty multi-class closes ride the ring concurrently (one flight per
     workload class), and drain leaves zero in-flight groups.  (The JAX
-    test's cluster drain barrier waits for the cluster slice.)"""
+    test's cluster drain barrier is in ``tests/test_torch_cluster.py``.)"""
     server = CryptoServer(_cfg(async_pipeline=True, inflight_depth=2,
                                max_age_s=0.002), coscheduler=COS)
     now = 0.0
@@ -325,8 +325,8 @@ def _parity_kw(seed):
 def test_closed_loop_serving_matches_offline_replay_bitforbit():
     """Acceptance: controller + holdback + depth-k ring through the full
     online runtime equals the static-config offline replay bit-for-bit
-    (single host; the JAX test's 2-host cluster waits for the cluster
-    slice)."""
+    (single host; the JAX test's 2-host cluster is in
+    ``tests/test_torch_cluster.py``)."""
     kw = _parity_kw(29)
     offline_results, n_ops, _ = serve_crypto(validate=False, coscheduler=COS,
                                              **kw)

@@ -9,7 +9,7 @@ rules), whose scraped series, OpenMetrics text and alert log equal the JAX
 server's on the same requests.
 
 Left out: the cluster runs (fleet scrape determinism, gossip-silence
-sensing), which wait for the cluster slice, and the ``perf_report`` script's
+sensing), which are in ``tests/test_torch_cluster.py``, and the ``perf_report`` script's
 drift check, which reads the JAX package's benchmark records.
 """
 import gzip

@@ -4,7 +4,7 @@ modules, and, where the JAX package has the same function, the same seeded
 inputs through both with equal results.
 
 Left out: the cluster tests (fleet traces, cross-host histogram merges),
-which wait for the cluster slice.  Everything runs on the virtual clock on
+which are in ``tests/test_torch_cluster.py``.  Everything runs on the virtual clock on
 the CPU; the traced serving runs use the port's server with the plain
 PyTorch versions of the kernels.
 """
