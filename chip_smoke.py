@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. env — the card (``nvidia-smi`` name and power limit, compute capability
-   9.0), the build of the CUDA kernels from ``src/repro_torch/csrc`` and
+   9.0), ``nvcc``'s version, the build of the CUDA kernels (and the graph
+   reader) from ``src/repro_torch/csrc`` and
    each kernel instance's registers and spills from the build's ptxas
    report (``k1_resources``, ``k2_resources``, ``k3_resources``);
 2. kernels — ``limb_matmul`` (K1) and ``mont_fold`` (K2) against their plain
@@ -51,9 +52,11 @@ Phases, each printing one JSON line:
    height, captured at first use) and warm (every launch one replay,
    nothing captured).  Every tenant row is checked (Dilithium against the
    int64 oracle, BN254 against the CPU replay) and every kernel launch
-   counted against the engines' fold profiles: the program runs and each
-   capture's warm-up, and every program's recorded K1/K2 calls (no K3
-   launch: the replay does not take the fused path).  The line gives the
+   counted against the engines' fold profiles: the program runs, each
+   capture's warm-up and the warm-up of each class's validation probe
+   (``serve_crypto`` validates every class before its first dispatch), and
+   every program's recorded K1/K2 calls (no K3 launch: the replay does not
+   take the fused path).  The line gives the
    cold run's wall time and launches (``wall_s``, as a first replay on a
    fresh co-scheduler), the warm run's under ``warm``, captures, their host
    seconds and the graph pool's bytes; then two more warm runs of the paper
@@ -63,7 +66,24 @@ Phases, each printing one JSON line:
    counted launches, and are the kernel table's K1/K2 ``launches``), and
    one BN254 and one Dilithium dispatch time their program against the
    same ``e2e`` called op by op;
-6. online — the online server (``serve_crypto_online`` on the card, the
+6. validator — the structural validator (``repro_torch.core.validator``)
+   on the card: for every class of the paper and mixed eager/lazy replays,
+   the census probe of before (a plain capture) and the server's probe now
+   (``validate_fn``: the capture with its graph kept, read by
+   ``csrc/graph_census.cu``, and the checks) timed in turns; then the
+   server's probe kept (``GraphProbe`` checked by ``validate_probe``, what
+   ``validate_fn`` runs on the card) and its K1/K2/other nodes and its
+   edges by type (full, programmatic), the reader's seconds, its K1/K2
+   nodes equal to the census, to its capture's recorded calls and to the
+   kernel events of one replay of the validated graph under
+   torch.profiler, that replay's rows equal to the CPU engine's, and the
+   graph pool's bytes before the probe and after it is dropped; the four malformed programs of ``tests/test_torch_validator.py``
+   (every GEMM before any fold, a window folded twice, eager folds audited
+   as lazy, a fold in another zone than its GEMM) flagged from their graphs
+   with V1/V2, V7, V6 and V3; one fused transform (K3) validated; one eager
+   BN254 e2e under torch.profiler with every K1/K2 kernel launched inside a
+   ``wzone_*`` range;
+7. online — the online server (``serve_crypto_online`` on the card, the
    measured service time, not the modelled one) on the same paper trace in
    three configurations, each run cold and then warm on one co-scheduler:
    (a) ``online_paper``, the defaults, which also writes its Chrome trace
@@ -75,12 +95,12 @@ Phases, each printing one JSON line:
    prints its counts, every tenant row checked (Dilithium against the int64
    oracle, every row against the slice replay of the same trace), its
    launch census (K1/K2 launches against the fold profiles: program runs,
-   capture warm-ups and census probes; K3 none), latency and queue-wait
+   capture warm-ups and validation probes; K3 none), latency and queue-wait
    percentiles from the telemetry and per workload, occupancy, the dispatch
    section, captures, peak device memory and the card's name and power
    limit; then ``online_memory``, the device memory in use and the live
    programs before the phase and after it, its co-schedulers dropped;
-7. cluster — the multi-host cluster (``serve_crypto_cluster`` on the card,
+8. cluster — the multi-host cluster (``serve_crypto_cluster`` on the card,
    every host a ``CryptoServer`` with its own co-scheduler and captured
    programs, all behind one tenant-hash ingress) on the same paper trace in
    three configurations, each run cold (fresh per-host co-schedulers) and
@@ -95,7 +115,7 @@ Phases, each printing one JSON line:
    checked against the slice replay (Dilithium also against the int64
    oracle), and (b)'s and (c)'s against (a)'s; the K1/K2 launches against
    the census summed over the hosts (each host's program runs, capture
-   warm-ups and census probes); the drain barrier must be complete with no
+   warm-ups and validation probes); the drain barrier must be complete with no
    group in flight, the gossip's used staleness within its bound and no
    request lost.  Each prints per-host requests and load imbalance, merged
    latency percentiles (overall and per workload), the wall time, captures
@@ -105,12 +125,12 @@ Phases, each printing one JSON line:
    gathered at its cordon and their rows checked), for (c), the
    ``devices`` section and the dispatch-overlap audit.
 
-Four short calls run the first phase and stop: ``--k3`` adds K3's checks and
-times (for a change to K3), ``--k2`` K2's checks, times and pass spans and
-K3's checks (for a change to the fold, which K3 shares), ``--online`` the
-online phase, with the CPU replays of its two traces as the reference, and
-``--cluster`` the cluster phase, with the CPU replay of the paper trace as
-the reference.
+Five short calls run the first phase and stop: ``--k3`` adds K3's checks
+and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
+and K3's checks (for a change to the fold, which K3 shares), ``--validator``
+the validator phase, ``--online`` the online phase, with the CPU replays of
+its two traces as the reference, and ``--cluster`` the cluster phase, with
+the CPU replay of the paper trace as the reference.
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
 code is not 0 and the last line is missing.  The last two lines are the
@@ -138,11 +158,14 @@ from repro_torch.core import field as F                          # noqa: E402
 from repro_torch.core import limb_gemm as G                      # noqa: E402
 from repro_torch.core import ntt as NTT                          # noqa: E402
 from repro_torch.core import rns as R                            # noqa: E402
+from repro_torch.core import validator as V                      # noqa: E402
 from repro_torch.core import workloads as WK                     # noqa: E402
+from repro_torch.core import zones as Z                          # noqa: E402
 from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E402
-from repro_torch.core.scheduler import TenantRequest             # noqa: E402
+from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,  # noqa: E402
+                                        RectangularScheduler, TenantRequest)
 from repro_torch.cluster import ClusterConfig, ClusterServer    # noqa: E402
-from repro_torch.core.scheduler.program import E2EProgram, host_operand  # noqa: E402
+from repro_torch.core.scheduler.program import E2EProgram, GraphProbe, capture_pool, host_operand  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref  # noqa: E402
@@ -154,11 +177,12 @@ from repro_torch.kernels.mont_fold.kernel import grid_blocks as k2_grid_blocks  
 from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
 from repro_torch.launch.serve import serve_crypto, serve_crypto_cluster, serve_crypto_online  # noqa: E402
-from repro_torch.core.scheduler.coscheduler import expected_kernel_calls  # noqa: E402
+from repro_torch.core.scheduler.coscheduler import check_launch_census, expected_kernel_calls  # noqa: E402
 from repro_torch.device import partition_devices                # noqa: E402
 from repro_torch.obs import validate_chrome_trace, validate_openmetrics  # noqa: E402
 from repro_torch.serve import ServeConfig                       # noqa: E402
-from repro_torch.serve.server import coscheduler_from_config    # noqa: E402
+from repro_torch.serve.client import attach_payloads            # noqa: E402
+from repro_torch.serve.server import CryptoServer, coscheduler_from_config  # noqa: E402
 
 Q = F.DILITHIUM_Q
 SEED = 0
@@ -358,9 +382,11 @@ def phase_env(dev):
     print(smi[0], flush=True)
     cap = torch.cuda.get_device_capability(dev)
     check(cap == (9, 0), f"compute capability {cap}, the kernels are sm_90a")
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
     t0 = time.perf_counter()
     build.entries()
-    env = {"phase": "env", "nvidia_smi": smi[0],
+    env = {"phase": "env", "nvidia_smi": smi[0], "nvcc": nvcc[-1],
            "device": torch.cuda.get_device_name(dev), "capability": list(cap),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "build_s": time.perf_counter() - t0,
@@ -983,7 +1009,7 @@ def _reset_counters():
 def _census(cos, runs: dict, captures_before: dict, probes: int = 0) -> dict:
     """K1/K2 launches a run must have enqueued: for each (workload,
     d_bucket), its program runs, its new captures (each capture's warm-up
-    runs the e2e once) and ``probes`` census probes, times the calls of one
+    runs the e2e once) and ``probes`` validation probes, times the calls of one
     e2e (the fold profile)."""
     want = {"limb_matmul": 0, "mont_fold": 0}
     for key, n in runs.items():
@@ -1052,7 +1078,8 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
         for r in results:
             key = (r.batch.workload, r.batch.d_bucket)
             dispatches[key] = dispatches.get(key, 0) + 1
-        want = _census(cos, dispatches, captures)
+        # serve_crypto validates every class it dispatches with one probe
+        want = _census(cos, dispatches, captures, probes=1)
         check(launches == want and all(want.values()),
               f"{label} {phase}: launches {launches} != the census {want}")
         _check_rows(f"{label} {phase}", results, cpu_rows, oracle)
@@ -1063,11 +1090,15 @@ def phase_slice(dev, label: str, d_uniform=None, **cos_kw):
     check(runs["warm"]["captures"] == 0,
           f"{label}: the warm replay captured {runs['warm']['captures']}")
     warm = runs["warm"]
+    probes = [expected_kernel_calls(cos.engine_for(*key)) for key in
+              {(r.batch.workload, r.batch.d_bucket) for r in results}]
     check(warm["launches"] == {
         "limb_matmul": sum(r.stats["n_passes"] * r.stats["n_channels"]
-                           for r in results),
-        "mont_fold": sum(r.stats["n_folds"] for r in results)},
-          f"{label}: warm launches {warm['launches']} != fold-profile totals")
+                           for r in results) + sum(p[0] for p in probes),
+        "mont_fold": sum(r.stats["n_folds"] for r in results)
+        + sum(p[1] for p in probes)},
+          f"{label}: warm launches {warm['launches']} != fold-profile totals "
+          f"with one validation probe per class")
     per_workload = {}
     for r in results:
         per_workload[r.batch.workload] = (per_workload.get(r.batch.workload, 0)
@@ -1098,14 +1129,20 @@ def _cpu_rows(d_uniform=None, **cos_kw) -> dict:
     return rows
 
 
+# The scopes of repro_torch.core.zones (and the engines' other scope names):
+# profiler ranges that also show on the device as annotations spanning their
+# kernels, which are not kernels.
+SCOPE_RE = re.compile(r"^(wzone_|pzone_|tzone_|channel_\d|staging_pass_\d|"
+                      r"lazy_window_\d|mxu_pointwise$|vpu_)")
+
+
 def _kernel_events(prof):
-    """The profiler's device-side kernel (and copy) averages.  The
-    record_function range around rns_to_field also shows on the device as
-    an annotation spanning its kernels; it is not a kernel and is skipped."""
+    """The profiler's device-side kernel (and copy) averages, without the
+    scopes' annotations."""
     for ev in prof.key_averages():
         if (ev.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)
-                and ev.key != "rns_to_field"):
+                and not SCOPE_RE.match(ev.key)):
             yield ev
 
 
@@ -1321,7 +1358,7 @@ def _online_run(dev, cos, label: str, kw: dict, d_uniform,
               "max_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
     launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
                 "fused_ntt_tile": K3.launches}
-    # every dispatched class ran one census probe besides its launches
+    # every dispatched class ran one validation probe besides its launches
     want = _census(cos, runs, captures, probes=1)
     check(launches == {**want, "fused_ntt_tile": 0} and all(want.values()),
           f"{label}: launches {launches} != the census {want} (and no K3)")
@@ -1518,19 +1555,26 @@ def _cluster_run(dev, coses: list, label: str, kw: dict,
             return run(workload, d, operand)
         return counted
 
-    def timing(cos, spent):
-        capture = cos.capture
-
-        def timed(*args):
-            prog = capture(*args)
-            spent.append(prog.capture_s)
-            return prog
-        return timed
-
+    # each host's validation probes: the host seconds of every first
+    # validation of a class (CryptoServer._validate_once, the graph probe,
+    # its reading and the checks), keyed by the host's co-scheduler
     spent = [[] for _ in coses]
-    for cos, counts, s in zip(coses, runs, spent):
+    host_of = {id(cos): h for h, cos in enumerate(coses)}
+    validate_once = CryptoServer._validate_once
+
+    def timed_validation(server, batch):
+        new = (batch.workload, batch.d_bucket) not in server._validated
+        t0 = time.perf_counter()
+        try:
+            return validate_once(server, batch)
+        finally:
+            if new:
+                spent[host_of[id(server.cos)]].append(
+                    time.perf_counter() - t0)
+
+    for cos, counts in zip(coses, runs):
         cos._run = counting(cos, counts)
-        cos.capture = timing(cos, s)
+    CryptoServer._validate_once = timed_validation
     captures = [dict(cos.trace_counts) for cos in coses]
     capture_s = [_capture_s(cos) for cos in coses]
     torch.cuda.synchronize(dev)
@@ -1546,11 +1590,12 @@ def _cluster_run(dev, coses: list, label: str, kw: dict,
             metrics_out=paths and str(paths["metrics"]), **kw)
         torch.cuda.synchronize(dev)
     finally:
+        CryptoServer._validate_once = validate_once
         for cos in coses:
-            del cos._run, cos.capture
+            del cos._run
     launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
                 "fused_ntt_tile": K3.launches}
-    # every class a host dispatched ran one census probe on that host
+    # every class a host dispatched ran one validation probe on that host
     want = {"limb_matmul": 0, "mont_fold": 0}
     for cos, counts, before in zip(coses, runs, captures):
         for k, v in _census(cos, counts, before, probes=1).items():
@@ -1565,16 +1610,17 @@ def _cluster_run(dev, coses: list, label: str, kw: dict,
     new = [sum(c.trace_counts.values()) - sum(b.values())
            for c, b in zip(coses, captures)]
     new_s = [_capture_s(c) - s0 for c, s0 in zip(coses, capture_s)]
-    probes = [len(t) - n for t, n in zip(spent, new)]
+    probes = [len(t) for t in spent]
     check(probes == [len(c) for c in runs],
-          f"{label}: census probes per host {probes}, classes dispatched "
-          f"{[len(c) for c in runs]}")
+          f"{label}: validation probes per host {probes}, classes "
+          f"dispatched {[len(c) for c in runs]}")
     return {"load": load, "snap": snap, "wall": wall,
             "launches": launches, "want": want,
             "captures": new, "capture_s": new_s,
-            # census probes: the captures outside the program cache
+            # validation probes: the captures outside the program cache,
+            # each with its graph read and checked
             "probes": probes,
-            "probe_s": [sum(t) - s0 for t, s0 in zip(spent, new_s)],
+            "probe_s": [sum(t) for t in spent],
             "memory": {"resident_before_bytes": resident,
                        "max_allocated_bytes":
                            torch.cuda.max_memory_allocated(dev),
@@ -1749,6 +1795,285 @@ def phase_cluster(dev, env: dict, ref: dict):
     return outs
 
 
+def _classes(d_uniform=None) -> list:
+    """The (workload, d_bucket) classes of the replay's trace, in the order
+    ``serve_crypto`` first dispatches them (its batching without the
+    dispatch)."""
+    trace = PoissonTrace(rate_hz=4096, duration_s=0.25,
+                         uniform_degree=d_uniform, seed=SEED).generate()
+    attach_payloads(trace, seed=SEED)
+    q = IngressQueue()
+    q.push_trace(trace)
+    sched = RectangularScheduler(n_c=8)
+    keys = []
+    while q.workloads:
+        for w in list(q.workloads):
+            for batch in sched.plan_batches(q.pop_batch(w, 8)):
+                if (w, batch.d_bucket) not in keys:
+                    keys.append((w, batch.d_bucket))
+    return keys
+
+
+def _profiled_counts(fn, dev) -> dict:
+    """K1/K2/K3 kernel events of one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    return {name: sum(ev.count for ev in _kernel_events(prof)
+                      if f"{name}_kernel" in ev.key)
+            for name in ("limb_matmul", "mont_fold", "fused_ntt_tile")}
+
+
+def _validator_class(dev, cos, cpu_cos, workload: str, d: int,
+                     rng) -> dict:
+    """One class at the replay's height: the host seconds of the census
+    probe that came before the validator (a plain capture, its recorded
+    calls against the fold profile) and of the server's probe now
+    (``validate_fn``: a capture with the graph kept, the launch log, the
+    graph reader and the checks), taken in turns (census, validator,
+    validator, census); then the server's probe kept (a ``GraphProbe``
+    checked by ``validate_probe``, as ``validate_fn`` checks it), its K1/K2
+    nodes held against the census, its capture's recorded calls and the
+    profiler's kernel events of one replay of the validated graph, and that
+    replay's rows against the CPU engine on the same operand; the graph
+    pool's bytes before the probe and after it is dropped."""
+    eng = cos.engine_for(workload, d)
+    shape = cos.operand_shape(workload, d, 8)
+    expect = V.checks_for(eng, cos.reduction_for(workload))
+    zeros = torch.zeros(shape, dtype=torch.int32, device=dev)
+    planes = cos.device_planes_for(workload, d)
+
+    def census_probe():
+        # the probe before the validator: a plain capture, its recorded
+        # calls held against the fold profile
+        prog = cos.capture(workload, d, shape)
+        check_launch_census(eng, prog.calls["limb_matmul"],
+                            prog.calls["mont_fold"], f"{workload}/d{d}")
+
+    def validator_probe():
+        # the server's probe now: validate_fn on the e2e, the census
+        rep = V.validate_fn(lambda x, pl: eng.e2e(x, planes=pl), zeros,
+                            planes, **expect)
+        check_launch_census(eng, rep.n_dots, rep.n_folds, f"{workload}/d{d}")
+        rep.raise_if_failed()
+
+    probe_s = {"census_capture": [], "validate_fn": []}
+    for name, fn in (("census_capture", census_probe),
+                     ("validate_fn", validator_probe),
+                     ("validate_fn", validator_probe),
+                     ("census_capture", census_probe)):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        probe_s[name].append(time.perf_counter() - t0)
+        gc.collect()
+    pool_before = capture_pool(dev).bytes()
+    operand = torch.zeros(shape, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    probe = GraphProbe(lambda: eng.e2e(operand, planes=planes), dev)
+    probe_capture_s = time.perf_counter() - t0
+    rep = V.validate_probe(probe, **expect)
+    check(rep.ok, f"validator {workload}/d{d}: {rep.violations} "
+          f"(graph {rep.graph})")
+    k1, k2 = expected_kernel_calls(eng)
+    nodes = rep.graph["kernel_nodes"]
+    check((rep.n_dots, rep.n_folds) == (k1, k2)
+          == (nodes["limb_matmul"], nodes["mont_fold"])
+          == (probe.calls["limb_matmul"], probe.calls["mont_fold"])
+          and nodes["fused_ntt_tile"] == 0,
+          f"validator {workload}/d{d}: nodes {nodes}, census {(k1, k2)}, "
+          f"capture calls {probe.calls}")
+    check(rep.graph["edges"]["programmatic"] > 0,
+          f"validator {workload}/d{d}: the reader returned no programmatic "
+          f"edge, though every K2 is a programmatic dependent")
+    if workload == "bn254":
+        live = (rng.integers(0, 2**31, shape, dtype=np.uint64)
+                % np.array(eng.chain.moduli, np.uint64)).astype(np.uint32)
+    else:
+        live = rng.integers(0, Q, shape, dtype=np.uint64).astype(np.uint32)
+    host, view = host_operand(shape, dev)
+    view[:] = live
+    operand.copy_(host)
+    events = _profiled_counts(probe.replay, dev)
+    check(events == {"limb_matmul": k1, "mont_fold": k2,
+                     "fused_ntt_tile": 0},
+          f"validator {workload}/d{d}: kernel events of one replay "
+          f"{events} != the nodes {(k1, k2)}")
+    got = probe.out.to(torch.int32).cpu()
+    want = cpu_cos.engine_for(workload, d).e2e(
+        torch.from_numpy(live.astype(np.int64))).to(torch.int32)
+    check(torch.equal(got, want),
+          f"validator {workload}/d{d}: the validated probe's rows differ "
+          f"from the CPU engine's")
+    out = {"class": f"{workload}/d{d}", "shape": list(shape),
+           "ok": rep.ok, "n_barriers": rep.n_barriers,
+           "zones": sorted(rep.zones | rep.precision_zones),
+           "graph": rep.graph, "probe_capture_s": probe_capture_s,
+           "read_s": probe.read_s, "probe_s": probe_s,
+           "replay_events": events, "rows_equal": True,
+           "pool_bytes_before": pool_before}
+    del probe
+    gc.collect()
+    out["pool_bytes_after"] = capture_pool(dev).bytes()
+    return out
+
+
+def _malformed(dev) -> dict:
+    """The four malformed programs of the validator's tests, built on the
+    card, and the violation code each must be flagged with from its graph:
+    a staged transform that runs every pass's GEMM before any fold (V1,
+    V2), a lazy window that folds twice (V7), an eager program audited as
+    lazy (V6), and a fold in one workload zone of a GEMM of another (V3)."""
+    d_tile, m = 32, Q
+    plan = G.make_channel_plan(
+        NTT.ntt_matrix(96, Q, negacyclic=True), Q, data_limbs=3, tw_limbs=3)
+    _, fused = G.plane_operands(plan, dev)
+    la, n_diag = plan.data_limbs, plan.n_diag
+    tiles = plan.tile_bounds(d_tile)
+    zeros = torch.zeros((2, plan.d), dtype=torch.int32, device=dev)
+
+    def zoned(fn, zone="dilithium"):
+        def run(a):
+            with Z.workload_zone(zone, dev), Z.precision_zone(3, dev):
+                return fn(a)
+        return run
+
+    def deferred(a):
+        diags = []
+        for t, (lo, hi) in enumerate(tiles):
+            with Z.scope(f"staging_pass_{t}", dev):
+                diags.append(G.tile_diagonals(a[:, lo:hi], None,
+                                              fused[lo * la:hi * la], plan))
+        y = torch.zeros((a.shape[0], plan.d), dtype=torch.int64, device=dev)
+        for t, diag in enumerate(diags):
+            with Z.scope(f"staging_pass_{t}", dev), Z.scope("vpu_fold", dev):
+                y = F.addmod(y, mont_fold(diag, m), m)
+        return y
+
+    def double_fold(a):
+        diag = G.tile_diagonals(a, None, fused, plan)
+        with Z.scope("lazy_window_0", dev), Z.scope("vpu_fold_lazy", dev):
+            y1 = mont_fold(diag, m)
+            y2 = mont_fold(diag + 1, m)
+        return F.addmod(y1, y2, m)
+
+    def eager(a):
+        return G.staged_transform(a, plan, d_max=d_tile,
+                                  planes=(None, fused))[0]
+
+    def cross_zone(a):
+        with Z.workload_zone("dilithium", dev), Z.precision_zone(3, dev):
+            diag = G.tile_diagonals(a, None, fused, plan)
+        with Z.workload_zone("bn254", dev), Z.precision_zone(3, dev):
+            return mont_fold(diag, m)
+
+    return {
+        "deferred_fold": (zoned(deferred), dict(expected_passes=len(tiles)),
+                          {"V1", "V2"}),
+        "double_fold_window": (zoned(double_fold), dict(
+            expect_eager=False, expected_windows=1, n_diag=n_diag), {"V7"}),
+        "eager_fold_in_lazy": (zoned(eager), dict(
+            expect_eager=False, expected_windows=1, n_diag=n_diag), {"V6"}),
+        "cross_zone_combine": (cross_zone, dict(expect_eager=False),
+                               {"V3"}),
+    }, zeros
+
+
+def _zoned_kernel_events(dev) -> dict:
+    """One eager BN254 e2e (d = 64) under torch.profiler: every K1/K2 kernel
+    event must be launched inside a ``wzone_*`` range, by the runtime call
+    the trace correlates with it lying in such a range of its thread."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = WK.make_engine("bn254", 64, device=str(dev))
+    a = torch.zeros((8, 64, eng.n_channels), dtype=torch.int32, device=dev)
+    eng.e2e(a)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.e2e(a)
+        torch.cuda.synchronize(dev)
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "validator_zones_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    zones = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith("wzone_")]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime"
+               and "correlation" in e.get("args", {})}
+    counts = {"limb_matmul": 0, "mont_fold": 0, "inside": 0, "unlinked": 0}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "kernel" or not (
+                "limb_matmul_kernel" in name or "mont_fold_kernel" in name):
+            continue
+        counts["limb_matmul" if "limb_matmul" in name else "mont_fold"] += 1
+        rt = runtime.get(e.get("args", {}).get("correlation"))
+        if rt is None:
+            counts["unlinked"] += 1
+        elif any(t == rt["tid"] and t0 <= rt["ts"] <= t1
+                 for t, t0, t1 in zones):
+            counts["inside"] += 1
+    k1, k2 = expected_kernel_calls(eng)
+    check(counts["limb_matmul"] == k1 and counts["mont_fold"] == k2
+          and counts["inside"] == k1 + k2,
+          f"zoned kernel events {counts}: every one of the {k1} K1 and {k2} "
+          f"K2 events must be launched inside a wzone_* range")
+    path.unlink()
+    return counts
+
+
+def phase_validator(dev) -> dict:
+    """The structural validator on the card: every class of the paper and
+    mixed eager/lazy replays validated from its probe's graph, node by
+    node, and its validated probe replayed with its rows checked; the four
+    malformed programs flagged from their graphs; one fused transform (K3)
+    validated; one eager e2e's K1/K2 kernel events inside wzone_* ranges."""
+    rng = np.random.default_rng(SEED + 5)
+    out = {"phase": "validator", "classes": {}}
+    for label, d_uniform, kw in (("paper", None, {}),
+                                 ("mixed_eager_lazy", 256, MIXED)):
+        cos = SliceCoScheduler(device=dev, **kw)
+        cpu_cos = SliceCoScheduler(device="cpu", **kw)
+        out["classes"][label] = [
+            _validator_class(dev, cos, cpu_cos, w, d, rng)
+            for w, d in _classes(d_uniform)]
+    cases, zeros = _malformed(dev)
+    out["malformed"] = {}
+    for name, (fn, checks, codes) in cases.items():
+        rep = V.validate_fn(fn, zeros, **checks)
+        got = {v[0] for v in rep.violations}
+        check(rep.graph is not None and not rep.ok and got == codes,
+              f"validator: malformed {name} gave {sorted(got)} from "
+              f"{'the graph' if rep.graph else 'the log'}, expected "
+              f"{sorted(codes)}: {rep.violations}")
+        out["malformed"][name] = {"codes": sorted(got),
+                                  "nodes": rep.graph["kernel_nodes"],
+                                  "edges": rep.graph["edges"]}
+    plan = WK.make_engine("dilithium", 256, device=str(dev)).plan
+    planes = G.plane_operands(plan, dev)
+    a = torch.zeros((8, 256), dtype=torch.int32, device=dev)
+
+    def fused(x):
+        with Z.workload_zone("dilithium", dev), Z.precision_zone(3, dev):
+            return fused_transform(x.to(torch.int64), plan, planes=planes)
+
+    rep = V.validate_fn(fused, a)
+    rep.raise_if_failed()
+    nodes = rep.graph["kernel_nodes"]
+    check(nodes["fused_ntt_tile"] == plan.n_passes and rep.n_dots == 0
+          and rep.n_folds == 0,
+          f"validator: fused transform nodes {nodes}, {plan.n_passes} passes")
+    out["fused_transform"] = {"nodes": nodes, "zones": sorted(rep.zones),
+                              "read_s": rep.graph["read_s"]}
+    out["zoned_kernel_events"] = _zoned_kernel_events(dev)
+    emit(out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -1761,6 +2086,10 @@ def main():
         rng = np.random.default_rng(SEED + 3)
         emit({"phase": "k3_checks", **k3_checks(dev, rng)})
         emit({"phase": "k3_timings", "fused_ntt_tile": k3_timings(dev, env["device"], rng)})
+        return
+    if sys.argv[1:] == ["--validator"]:
+        # a short call: the build and the validator phase
+        phase_validator(dev)
         return
     if sys.argv[1:] == ["--online"]:
         # a short call: the build and the online phase, its reference rows
@@ -1794,6 +2123,7 @@ def main():
     # in a warm paper replay, the counters set to 0 just before it (and
     # equal to them)
     launched = phase_profile(dev)["census_by_profiler"]["events"]
+    phase_validator(dev)
     phase_online(dev, env, {"paper": paper_rows, "mixed": mixed_rows})
     phase_cluster(dev, env, paper_rows)
 

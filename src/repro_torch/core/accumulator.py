@@ -185,7 +185,7 @@ class LazyWindowAccumulator:
         self._acc = None
         self._bound = 0          # worst-case |entry| of the pending window
         self._n_pending = 0      # passes accumulated since the last fold
-        self.window_index = 0    # folds emitted so far
+        self.window_index = 0    # folds emitted so far (scopes the fold)
         self.n_folds = 0
 
     def add(self, diag, d_tile: int):
@@ -215,7 +215,9 @@ class LazyWindowAccumulator:
         from repro_torch.core import montgomery as MONT
         if self._acc is None:
             raise ValueError("fold() on an empty window")
-        y = MONT.deferred_fold(self._acc, self.modulus, fold_fn=self.fold_fn)
+        y = MONT.deferred_fold(self._acc, self.modulus,
+                               window_index=self.window_index,
+                               fold_fn=self.fold_fn)
         self._acc = None
         self._bound = 0
         self._n_pending = 0

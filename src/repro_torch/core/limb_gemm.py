@@ -35,6 +35,7 @@ from repro_torch.core import field as F
 from repro_torch.core import limbs as L
 from repro_torch.core.accumulator import (AccumModel, MAX_PIXEL_PRODUCT,  # noqa: F401
                                           accumulator_window)
+from repro_torch.core.zones import scope
 from repro_torch.kernels.limb_matmul.ops import limb_matmul
 from repro_torch.kernels.mont_fold.ops import mont_fold
 
@@ -168,21 +169,22 @@ def tile_diagonals(a_tile: torch.Tensor, w_planes_tile, fused_tile,
     n = a_tile.shape[0]
     la = plan.data_limbs
     limbs = L.decompose_u8(a_tile, la)  # (N, dt, La) u8
-    if fused_tile is not None:
-        a_flat = limbs.reshape(n, -1)   # (N, dt·La) — K = (i, p)
-        out = limb_matmul(a_flat, fused_tile, accum=plan.accum)
-        return out.reshape(n, plan.d, plan.n_diag)
-    parts = []
-    for k in range(plan.n_diag):
-        terms = []
-        for p in range(la):
-            q = k - p
-            if 0 <= q < plan.tw_limbs:
-                terms.append(limb_matmul(limbs[..., p].contiguous(),
-                                         w_planes_tile[..., q].contiguous(),
-                                         accum=plan.accum))
-        parts.append(sum(terms[1:], terms[0]))
-    return torch.stack(parts, dim=-1)
+    with scope("mxu_pointwise", a_tile.device):
+        if fused_tile is not None:
+            a_flat = limbs.reshape(n, -1)   # (N, dt·La) — K = (i, p)
+            out = limb_matmul(a_flat, fused_tile, accum=plan.accum)
+            return out.reshape(n, plan.d, plan.n_diag)
+        parts = []
+        for k in range(plan.n_diag):
+            terms = []
+            for p in range(la):
+                q = k - p
+                if 0 <= q < plan.tw_limbs:
+                    terms.append(limb_matmul(limbs[..., p].contiguous(),
+                                             w_planes_tile[..., q].contiguous(),
+                                             accum=plan.accum))
+            parts.append(sum(terms[1:], terms[0]))
+        return torch.stack(parts, dim=-1)
 
 
 def staged_transform(
@@ -217,8 +219,16 @@ def staged_transform(
       windows raise.
 
     The JAX package puts ``optimization_barrier`` between passes so XLA
-    cannot fuse a fold into an open summation.  Nothing here needs it: the
-    ops run eagerly, in program order, on one CUDA stream.
+    cannot fuse a fold into an open summation.  The port has no compiler to
+    reorder the ops, but a captured CUDA graph does not complete them in
+    program order either: K2 is a programmatic dependent of K1 (PDL), so
+    K2's blocks start while K1 runs.  The scopes (``staging_pass_{t}``,
+    ``mxu_pointwise``, ``vpu_fold``; ``lazy_window_{i}/vpu_fold_lazy``
+    inside the accumulator's fold) tag every kernel call, and the
+    structural validator (:mod:`repro_torch.core.validator`) checks the
+    captured graph's nodes and edges against them: the K1 → K2 → next pass
+    order (V1) and a path of full edges from each fold to the next pass's
+    GEMM (V2).
     """
     check_reduction(reduction, kappa)
     step = min(d_max or plan.d_max, plan.d)
@@ -248,19 +258,22 @@ def staged_transform(
     w_full, f_full = planes if planes is not None else plane_operands(
         plan, a.device)
     y = torch.zeros((n, plan.d), dtype=torch.int64, device=a.device)
+    dev = a.device
     for t, (lo, hi) in enumerate(tiles):
-        a_tile = a[:, lo:hi]
-        w_tile, f_tile = None, None
-        if f_full is not None:
-            la = plan.data_limbs
-            f_tile = f_full[lo * la:hi * la]
-        else:
-            w_tile = w_full[lo:hi]
-        diag = kernel_fn(a_tile, w_tile, f_tile, plan)
-        if reduction == "eager":
-            y = F.addmod(y, fold_fn(diag, m), m)
-            stats["n_folds"] += 1
-        else:
+        with scope(f"staging_pass_{t}", dev):
+            a_tile = a[:, lo:hi]
+            w_tile, f_tile = None, None
+            if f_full is not None:
+                la = plan.data_limbs
+                f_tile = f_full[lo * la:hi * la]
+            else:
+                w_tile = w_full[lo:hi]
+            diag = kernel_fn(a_tile, w_tile, f_tile, plan)
+            if reduction == "eager":
+                with scope("vpu_fold", dev):
+                    y = F.addmod(y, fold_fn(diag, m), m)
+                stats["n_folds"] += 1
+        if reduction == "lazy":
             acc.add(diag, hi - lo)
             if acc.ready() or t + 1 == len(tiles):
                 y = F.addmod(y, acc.fold(), m)

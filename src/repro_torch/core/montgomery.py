@@ -9,28 +9,34 @@ ops (paper Table 3); on CUDA each op is one launch.
 
 **Deferred path** (paper §7.2.1) — ``deferred_fold`` is the single modular
 reduction per κ-window of the lazy discipline.  It runs the ``mont_fold``
-kernel (:mod:`repro_torch.kernels.mont_fold`) unless ``fold_fn`` swaps it.
+kernel (:mod:`repro_torch.kernels.mont_fold`) unless ``fold_fn`` swaps it,
+inside the scopes ``lazy_window_{i}/vpu_fold_lazy`` that the validator's
+V6/V7 key on (one fold per window).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import wordarith as W
+from repro_torch.core.zones import scope
 from repro_torch.kernels.mont_fold.ops import mont_fold
 
 
 def deferred_fold(acc_diag: torch.Tensor, modulus: int, *,
-                  fold_fn=None) -> torch.Tensor:
+                  window_index: int = 0, fold_fn=None) -> torch.Tensor:
     """Fold one κ-window of unreduced diagonals to a canonical residue.
 
     acc_diag: int32 (..., n_diag) — the summed diagonals of every staging pass
-    of one window (bounds proven by the lazy accumulator).
+    of window ``window_index`` (bounds proven by the lazy accumulator).
     ``fold_fn(acc_diag, modulus)`` overrides the reduction; the default is
     the ``mont_fold`` kernel wrapper (its plain version on a CPU tensor).
-    The JAX function also takes the window's index to scope its HLO for the
-    validator, which has no counterpart here.
+    The window scope is load-bearing: validator checks V6/V7 key on
+    ``lazy_window_{i}/vpu_fold_lazy`` to count the folds of each window.
     """
-    return (fold_fn or mont_fold)(acc_diag, modulus)
+    dev = acc_diag.device
+    with scope(f"lazy_window_{window_index}", dev), \
+            scope("vpu_fold_lazy", dev):
+        return (fold_fn or mont_fold)(acc_diag, modulus)
 
 
 def redc_digits(y_digits: torch.Tensor, chain) -> torch.Tensor:

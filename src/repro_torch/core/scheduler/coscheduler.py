@@ -95,8 +95,9 @@ def expected_kernel_calls(eng) -> tuple[int, int]:
 
 
 def check_launch_census(eng, k1_calls: int, k2_calls: int, what: str):
-    """The port's stand-in for the JAX package's HLO validator: one e2e of
-    ``eng`` must have made exactly the kernel calls its ``fold_profile``
+    """The launch census, checked beside the structural validator
+    (:mod:`repro_torch.core.validator`) on its K1/K2 node counts: one e2e
+    of ``eng`` must have made exactly the kernel calls its ``fold_profile``
     implies (eager: a GEMM and a fold per pass and channel; lazy: a fold
     per window and channel).  Raises on any mismatch."""
     want = expected_kernel_calls(eng)
@@ -241,8 +242,7 @@ class SliceCoScheduler:
 
     def capture(self, workload: str, d: int, shape: tuple) -> E2EProgram:
         """A new program of ``(workload, d)`` at operand ``shape`` on the
-        group's device, outside the program cache (the launch census's
-        probe takes one this way)."""
+        group's device, outside the program cache."""
         return E2EProgram(self.engine_for(workload, d), shape,
                           planes=self.device_planes_for(workload, d))
 

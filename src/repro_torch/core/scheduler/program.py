@@ -27,6 +27,13 @@ put back after it and its counts kept as :attr:`E2EProgram.calls` and
 them.  Those recorded counts are what the launch census checks against the
 engine's ``fold_profile``.
 
+The structural validator (:mod:`repro_torch.core.validator`) captures its
+probe with :class:`GraphProbe`: any function, captured under a launch log
+(:func:`repro_torch.core.zones.launch_log`) with the graph kept
+(``CUDAGraph(keep_graph=True)``, instantiated at its first replay) and read
+node by node (:mod:`repro_torch.kernels.graph_census`).  The cache's
+programs are captured without either.
+
 Every program of one device, whichever co-scheduler made it, shares the
 process's one graph memory pool and one side stream for that device
 (:func:`capture_pool`); each program owns its graph, which goes with it.
@@ -39,11 +46,14 @@ strand its cache when the co-scheduler goes.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import zones
+from repro_torch.kernels import graph_census
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2
@@ -119,6 +129,77 @@ def capture_pool(device: torch.device) -> CapturePool:
     return pool
 
 
+def record_graph(fn, pool: CapturePool, *, keep_graph: bool = False):
+    """Capture ``fn()`` as one CUDA graph on the pool's stream into its
+    memory, with ``CUDAGraph.capture_begin``/``capture_end``: what
+    ``torch.cuda.graph`` does, without the emptying of the device and
+    pinned-host caches that the context manager adds to every capture.  The
+    caller has warmed ``fn`` up and left the device idle.  The capture's
+    wrapper calls enqueue nothing, so the counters are put back after it.
+
+    Returns ``(graph, calls, launches, log)``: the counts the capture
+    recorded (kernel name -> count) and, with ``keep_graph``, the launch log
+    of the capture (the graph is then kept for the reader and instantiated
+    at its first replay); without it ``log`` is None."""
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    before = _counts()
+    try:
+        with contextlib.ExitStack() as stack:
+            log = stack.enter_context(zones.launch_log()) if keep_graph \
+                else None
+            stack.enter_context(torch.cuda.stream(pool.stream))
+            graph.capture_begin(pool=pool.handle)
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        calls, launches = _since(before)
+    finally:
+        _restore(before)        # the capture enqueued nothing
+    return graph, calls, launches, log
+
+
+def read_graph(graph, device: torch.device) -> tuple:
+    """The graph reader's census of a graph captured with
+    ``keep_graph=True``, and the host seconds the reading took."""
+    t0 = time.perf_counter()
+    census = graph_census.read(graph.raw_cuda_graph(), device.index)
+    return census, time.perf_counter() - t0
+
+
+class GraphProbe:
+    """``fn()`` captured once for the structural validator on a CUDA
+    ``device``: warmed up on the pool's stream (counted as it runs), then
+    captured into the pool under a launch log with the graph kept and read.
+    ``log`` holds the capture's launch log, ``census`` the graph's nodes
+    and edges, ``read_s`` the reader's host seconds and ``out`` what the
+    captured ``fn()`` returned, which :meth:`replay` overwrites.  The graph
+    and ``out`` go back to the pool with the probe."""
+
+    def __init__(self, fn, device: torch.device):
+        pool = capture_pool(device)
+        current = torch.cuda.current_stream(device)
+        pool.stream.wait_stream(current)
+        with torch.cuda.stream(pool.stream):
+            fn()                                # warm-up, counted as it runs
+        current.wait_stream(pool.stream)
+        torch.cuda.synchronize(device)
+        out = []
+        self.graph, self.calls, self.launches, self.log = record_graph(
+            lambda: out.append(fn()), pool, keep_graph=True)
+        self.out = out[0]
+        self.census, self.read_s = read_graph(self.graph, device)
+
+    def replay(self):
+        """Run the validated graph once on the current stream, on whatever
+        its inputs now hold; returns :attr:`out`."""
+        self.graph.replay()
+        for name, c in COUNTERS.items():
+            c.calls += self.calls[name]
+            c.launches += self.launches[name]
+        return self.out
+
+
 class E2EProgram:
     """``eng.e2e`` at one operand shape, with static input and output.
 
@@ -148,10 +229,8 @@ class E2EProgram:
         return self.eng.e2e(self.static_in, planes=self.planes)
 
     def _capture(self, pool: CapturePool):
-        """Warm up, then capture with ``CUDAGraph.capture_begin``/
-        ``capture_end`` on the pool's stream: what ``torch.cuda.graph``
-        does, without the emptying of the device and pinned-host caches
-        that the context manager adds to every capture."""
+        """Warm up on the pool's stream (which also gives the output's
+        shape), then :func:`record_graph` the e2e into the static output."""
         current = torch.cuda.current_stream(self.device)
         pool.stream.wait_stream(current)
         with torch.cuda.stream(pool.stream):
@@ -162,19 +241,8 @@ class E2EProgram:
         # as torch.cuda.graph does: the capture starts on an idle device,
         # with the warm-up done
         torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
-        before = _counts()
-        try:
-            with torch.cuda.stream(pool.stream):
-                graph.capture_begin(pool=pool.handle)
-                try:
-                    self.static_out.copy_(self._e2e())
-                finally:
-                    graph.capture_end()
-            self.calls, self.launches = _since(before)
-        finally:
-            _restore(before)        # the capture enqueued nothing
-        self.graph = graph
+        self.graph, self.calls, self.launches, _ = record_graph(
+            lambda: self.static_out.copy_(self._e2e()), pool)
 
     def load(self, host_operand: torch.Tensor):
         """Copy ``host_operand`` (int32, the program's shape; pinned on

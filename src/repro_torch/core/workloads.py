@@ -27,6 +27,7 @@ from repro_torch.core import field as F
 from repro_torch.core import limb_gemm as G
 from repro_torch.core import ntt as NTT
 from repro_torch.core import rns as R
+from repro_torch.core import zones as Z
 from repro_torch.device import resolve_device
 
 
@@ -145,11 +146,13 @@ class DilithiumEngine:
 
     def evaluate(self, a, *, kernel_fn=None, fold_fn=None, planes=None):
         """(N, d) residues -> (N, d) int64 forward NTT (one op per row)."""
-        y, self.last_stats = G.staged_transform(
-            _operand(a, self.device), self.plan, reduction=self.reduction,
-            kappa=self.kappa, d_max=self.d_tile, kernel_fn=kernel_fn,
-            fold_fn=fold_fn,
-            planes=(planes or self.device_planes())[0])
+        dev = self.device
+        with Z.workload_zone("dilithium", dev), Z.precision_zone(3, dev):
+            y, self.last_stats = G.staged_transform(
+                _operand(a, dev), self.plan, reduction=self.reduction,
+                kappa=self.kappa, d_max=self.d_tile, kernel_fn=kernel_fn,
+                fold_fn=fold_fn,
+                planes=(planes or self.device_planes())[0])
         return y
 
     e2e = evaluate  # Dilithium op == the forward transform
@@ -223,22 +226,27 @@ class BN254Engine:
 
     def evaluate(self, a_res, *, kernel_fn=None, fold_fn=None, planes=None):
         """(N, d, C) residues -> (N, d, C) int64 transformed residues."""
-        a_res = _operand(a_res, self.device)
+        dev = self.device
+        a_res = _operand(a_res, dev)
         planes = planes or self.device_planes()
         outs = []
         self.last_stats = None
-        for ci, plan in enumerate(self.plans):
-            y, st = G.staged_transform(
-                a_res[..., ci], plan, reduction=self.reduction,
-                kappa=self.kappa, d_max=self.d_tile, kernel_fn=kernel_fn,
-                fold_fn=fold_fn, planes=planes[ci])
-            outs.append(y)
-            self.last_stats = st
-        return torch.stack(outs, dim=-1)
+        with Z.workload_zone("bn254", dev), Z.precision_zone(4, dev):
+            for ci, plan in enumerate(self.plans):
+                with Z.scope(f"channel_{ci}", dev):
+                    y, st = G.staged_transform(
+                        a_res[..., ci], plan, reduction=self.reduction,
+                        kappa=self.kappa, d_max=self.d_tile,
+                        kernel_fn=kernel_fn, fold_fn=fold_fn,
+                        planes=planes[ci])
+                outs.append(y)
+                self.last_stats = st
+            return torch.stack(outs, dim=-1)
 
     def reduce(self, y_res: torch.Tensor) -> torch.Tensor:
         """(N, d, C) transformed residues -> (N, d, nred) int64 field digits."""
-        with torch.profiler.record_function("rns_to_field"):
+        dev = self.device
+        with Z.workload_zone("bn254", dev), Z.scope("vpu_montgomery", dev):
             return R.rns_to_field(y_res, self.chain)
 
     def e2e(self, a_res, *, kernel_fn=None, fold_fn=None, planes=None):

@@ -72,6 +72,7 @@
 
 #include "accum.cuh"
 #include "fold.cuh"
+#include "instances.cuh"
 #include "launch.cuh"
 
 namespace cg = cooperative_groups;
@@ -573,7 +574,22 @@ cudaError_t launch(const uint8_t* a, const int8_t* b3, int32_t* out, int n,
               : launch_kernel<uint32_t, NDIAG, false>(a, b3, out, n, k, d, m, p, s);
 }
 
+template <int NDIAG>
+void list_instances(KernelInstance* out) {
+  KernelInstance* o = out + 4 * (NDIAG - 1);
+  o[0] = {(const void*)fused_ntt_tile_kernel<uint32_t, NDIAG, false>, 3, 0, NDIAG, 0};
+  o[1] = {(const void*)fused_ntt_tile_kernel<uint32_t, NDIAG, true>, 3, 0, NDIAG, 1};
+  o[2] = {(const void*)fused_ntt_tile_kernel<float, NDIAG, false>, 3, 1, NDIAG, 0};
+  o[3] = {(const void*)fused_ntt_tile_kernel<float, NDIAG, true>, 3, 1, NDIAG, 1};
+  if constexpr (NDIAG < 8) list_instances<NDIAG + 1>(out);
+}
+
 }  // namespace
+
+int fused_ntt_tile_instances(KernelInstance* out) {
+  list_instances<1>(out);
+  return 32;
+}
 
 // The launch geometry of one call at (n, k, d, n_diag) on the operand b3 on
 // `device`, as the launch computes it: out[0] blocks, out[1] the cluster

@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "accum.cuh"
+#include "instances.cuh"
 #include "launch.cuh"
 
 namespace {
@@ -207,6 +208,14 @@ void launch(const uint8_t* a, const int8_t* b, int32_t* c, int n, int k,
 }
 
 }  // namespace
+
+int limb_matmul_instances(KernelInstance* out) {
+  out[0] = {(const void*)limb_matmul_kernel<uint32_t, false>, 1, 0, 0, 0};
+  out[1] = {(const void*)limb_matmul_kernel<uint32_t, true>, 1, 0, 0, 1};
+  out[2] = {(const void*)limb_matmul_kernel<float, false>, 1, 1, 0, 0};
+  out[3] = {(const void*)limb_matmul_kernel<float, true>, 1, 1, 0, 1};
+  return 4;
+}
 
 // Blocks in the grid of one launch at (n, ·, m).
 extern "C" int limb_matmul_blocks(int n, int m) {

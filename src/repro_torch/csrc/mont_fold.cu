@@ -44,6 +44,7 @@
 #include <stdint.h>
 
 #include "fold.cuh"
+#include "instances.cuh"
 #include "launch.cuh"
 
 namespace {
@@ -84,7 +85,18 @@ cudaError_t launch(const int32_t* d, uint32_t* o, int n_out, uint32_t m,
                             make_fold_consts<NDIAG>(m));
 }
 
+template <int NDIAG>
+void list_instances(KernelInstance* out) {
+  out[NDIAG - 1] = {(const void*)mont_fold_kernel<NDIAG>, 2, 0, NDIAG, 0};
+  if constexpr (NDIAG < 8) list_instances<NDIAG + 1>(out);
+}
+
 }  // namespace
+
+int mont_fold_instances(KernelInstance* out) {
+  list_instances<1>(out);
+  return 8;
+}
 
 // Blocks in the grid of one launch for n_out outputs.
 extern "C" int mont_fold_blocks(int n_out) { return blocks_of(n_out); }

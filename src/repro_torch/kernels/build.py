@@ -1,7 +1,9 @@
 """Build and bind the CUDA kernels of ``repro_torch/csrc``.
 
 Each ``.cu`` file has a plain C interface; the ``.cuh`` headers beside them
-hold device code that two kernels share.  At first use every source is
+hold device code that two kernels share.  ``graph_census.cu`` is host code
+in the same library: the reader of captured CUDA graphs that the structural
+validator uses.  At first use every source is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
 the objects are linked into one shared library under ``build/repro_torch/``
 at the repository root, and the library is loaded with ``ctypes``.  The
@@ -34,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu", "empty.cu")
+SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu", "empty.cu",
+           "graph_census.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # Compile-only flags: each kernel's registers, spills and shared memory go
@@ -52,6 +55,8 @@ _PROTOTYPES = {
     "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "fused_ntt_tile_grid": (_I, _I, _I, _I, _P, _I, _P),
     "empty_launch": (_I, _P),
+    "graph_census_size": (_P, _P),
+    "graph_census_read": (_P, _I, _I, _P, _P, _P, _P, _I),
 }
 
 _lock = threading.Lock()

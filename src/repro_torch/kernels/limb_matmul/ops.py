@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.zones import record_launch
 from repro_torch.kernels.limb_matmul.kernel import COUNTER, limb_matmul_cuda
 from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref
 
@@ -14,7 +15,9 @@ def limb_matmul(a_u8: torch.Tensor, b_s8: torch.Tensor, *,
     """(N, K) u8 × (K, M) s8 -> (N, M) int32.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.  No padding: the kernel masks ragged edges itself.
+    plain version.  No padding: the kernel masks ragged edges itself.  An
+    open launch log (:func:`repro_torch.core.zones.launch_log`) records the
+    call on either device.
     """
     if accum not in ACCUMS:
         raise ValueError(f"unknown accum {accum!r}; expected one of {ACCUMS}")
@@ -30,7 +33,12 @@ def limb_matmul(a_u8: torch.Tensor, b_s8: torch.Tensor, *,
     if a_u8.is_cuda:
         if not (a_u8.is_contiguous() and b_s8.is_contiguous()):
             raise ValueError("limb_matmul needs contiguous row-major operands")
-        return limb_matmul_cuda(a_u8, b_s8, accum)
-    if a_u8.is_cpu:
-        return limb_matmul_ref(a_u8, b_s8, accum)
-    raise ValueError(f"limb_matmul runs on cuda or cpu, not {a_u8.device}")
+        out = limb_matmul_cuda(a_u8, b_s8, accum)
+    elif a_u8.is_cpu:
+        out = limb_matmul_ref(a_u8, b_s8, accum)
+    else:
+        raise ValueError(f"limb_matmul runs on cuda or cpu, not {a_u8.device}")
+    n, k = a_u8.shape
+    record_launch("limb_matmul", (a_u8, b_s8), out, n=n, k=k,
+                  m=b_s8.shape[1], fp32=accum == "fp32_mantissa")
+    return out

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.zones import record_launch
 from repro_torch.kernels.mont_fold.kernel import COUNTER, mont_fold_cuda
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref
 
@@ -14,6 +15,7 @@ def mont_fold(diags: torch.Tensor, modulus: int) -> torch.Tensor:
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version.  Diagonals may be κ-pass sums of any int32 magnitude.
+    An open launch log records the call on either device.
     """
     modulus = int(modulus)
     if not 1 < modulus < 2**31:
@@ -27,10 +29,14 @@ def mont_fold(diags: torch.Tensor, modulus: int) -> torch.Tensor:
     if diags.is_cuda:
         if not diags.is_contiguous():
             raise ValueError("mont_fold needs contiguous diagonals")
-        return mont_fold_cuda(diags, modulus)
-    if diags.is_cpu:
-        return mont_fold_ref(diags, modulus).to(torch.int32)
-    raise ValueError(f"mont_fold runs on cuda or cpu, not {diags.device}")
+        out = mont_fold_cuda(diags, modulus)
+    elif diags.is_cpu:
+        out = mont_fold_ref(diags, modulus).to(torch.int32)
+    else:
+        raise ValueError(f"mont_fold runs on cuda or cpu, not {diags.device}")
+    record_launch("mont_fold", (diags,), out, n_out=out.numel(),
+                  n_diag=diags.shape[-1], modulus=modulus)
+    return out
 
 
 def mont_fold_window_fn():

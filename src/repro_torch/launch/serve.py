@@ -2,8 +2,8 @@
 
 * ``--mode crypto``: offline replay of the Aegis multi-tenant sequencer:
   Poisson ingress → Tier-1 rectangular batching → Tier-2 co-scheduled
-  dispatch → per-tenant results, with the launch census at the first
-  dispatch of every class;
+  dispatch → per-tenant results, with the structural validator
+  (:mod:`repro_torch.core.validator`) at the first dispatch of every class;
 * ``--mode crypto-online``: the :mod:`repro_torch.serve` runtime — live
   submit → admission → continuous batcher → dispatch closed loop with
   telemetry JSON, Chrome trace and OpenMetrics exports.  With ``--hosts N``
@@ -33,6 +33,9 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch
+
+from repro_torch.core import validator as V
 from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,
                                         RectangularScheduler)
 from repro_torch.core.scheduler.coscheduler import (SliceCoScheduler,
@@ -50,9 +53,10 @@ def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
     Returns ``(results, n_ops, seconds)`` with one ``DispatchResult`` per
     stacked batch, as the JAX package's ``serve_crypto``.  Runs on CUDA
     unless ``device="cpu"`` (or a given ``coscheduler``) says otherwise.
-    ``validate`` runs the launch census at the first dispatch of every
-    ``(workload, d_bucket)``: the K1/K2 calls recorded in the capture of its
-    program against the engine's ``fold_profile``.
+    ``validate`` runs the structural validator before the first dispatch of
+    every ``(workload, d_bucket)``, on its e2e at the launched operand
+    shape (on CUDA a capture whose graph is read node by node), and the
+    launch census: the K1/K2 nodes against the engine's ``fold_profile``.
     """
     trace = PoissonTrace(rate_hz=rate_hz, duration_s=duration_s,
                          uniform_degree=d_uniform, seed=seed).generate()
@@ -69,16 +73,28 @@ def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
             reqs = q.pop_batch(w, n_c)
             for batch in sched.plan_batches(reqs):
                 key = (w, batch.d_bucket)
-                results.append(cos.dispatch(batch))
                 if validate and key not in validated:
-                    for prog in cos.jitted_for(*key).values():
-                        check_launch_census(
-                            prog.eng, prog.calls["limb_matmul"],
-                            prog.calls["mont_fold"], f"{w}/d{batch.d_bucket}")
+                    _validate(cos, w, batch)
                     validated.add(key)
+                results.append(cos.dispatch(batch))
                 n_ops += batch.n_c
     dt = time.time() - t0
     return results, n_ops, dt
+
+
+def _validate(cos, workload: str, batch):
+    """The structural validator on the e2e of ``batch``'s class at its
+    launched operand shape, eager or lazy as the co-scheduler folds it, and
+    the launch census (checked first).  Raises on a violation."""
+    eng = cos.engine_for(workload, batch.d_bucket)
+    zeros = torch.zeros(cos.operand_shape(workload, batch.d_bucket,
+                                          batch.n_c),
+                        dtype=torch.int32, device=cos.device_for(workload))
+    rep = V.validate_fn(eng.e2e, zeros,
+                        **V.checks_for(eng, cos.reduction_for(workload)))
+    check_launch_census(eng, rep.n_dots, rep.n_folds,
+                        f"{workload}/d{batch.d_bucket}")
+    rep.raise_if_failed()
 
 
 def serve_crypto_online(*, duration_s=0.05, rate_hz=2048, n_c=8,
@@ -544,7 +560,7 @@ def main():
                                       device=args.device)
     print(f"sequencer: {n_ops} tenant ops in {dt:.2f}s "
           f"({n_ops/dt:.0f} ops/s on {args.device}), "
-          f"{len(results)} stacked batches dispatched, launch census passed; "
+          f"{len(results)} stacked batches dispatched, structurally validated; "
           f"kernel launches limb_matmul={K1.launches} "
           f"mont_fold={K2.launches}")
 

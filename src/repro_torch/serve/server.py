@@ -22,8 +22,10 @@ output independent of batch composition, and the batcher reuses the Tier-1
 bucketing, so only the grouping differs.
 
 This is the JAX package's ``repro.serve.server`` with three changes: the
-co-scheduler takes a ``device`` (``coscheduler_from_config``), the launch
-census replaces the HLO validator in ``_validate_once``, and
+co-scheduler takes a ``device`` (``coscheduler_from_config``), the
+structural validator in ``_validate_once`` reads the class's captured CUDA
+graph node by node in place of the HLO (:mod:`repro_torch.core.validator`),
+and
 ``compilation_cache_dir`` is recorded only: the CUDA kernels are cached on
 disk by source hash, and the co-scheduler's programs are CUDA graphs, which
 do not persist across processes, so every process captures its own (warm
@@ -36,7 +38,9 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.core import validator as V
 from repro_torch.core.scheduler.coscheduler import (SliceCoScheduler,
                                                     check_launch_census,
                                                     default_row_ladder)
@@ -705,29 +709,46 @@ class CryptoServer:
     # --- dispatch -------------------------------------------------------------
 
     def _validate_once(self, batch):
-        """The launch census, once per (workload, d_bucket): a program of
-        the dispatched form (int32 operand on the class's device, twiddle
+        """Structurally validate the program in its dispatched form, once per
+        (workload, d_bucket): int32 operand on the class's device, twiddle
         planes as uploaded and, with merging on, the *maximal* super-batch
-        height, the merge cap) is captured, and the K1/K2 calls recorded in
-        its capture must be exactly those its ``fold_profile`` implies: a
-        GEMM and a fold per pass and channel when eager, one fold per window
-        and channel when lazy (the V6/V7 intent).  The probe is captured
-        outside the co-scheduler's program cache, so it adds nothing to
-        ``trace_counts`` and no line to ``dispatch_log``.  Raises on a
-        mismatch."""
+        height (the merge cap), so V1–V7 are asserted on the tall merged
+        program the fast path actually runs.  On CUDA the e2e is captured
+        once with its graph kept and read node by node (a probe outside the
+        co-scheduler's program cache: nothing added to ``trace_counts`` or
+        ``dispatch_log``); on the CPU it runs eagerly under the launch log.
+        Eager programs are held to V1/V2 per pass, lazy ones to one fold per
+        κ-window (V6/V7); the co-scheduler's programs of other workloads
+        must share no buffer with each other (V5); and the K1/K2 nodes must
+        be the calls the fold profile implies (the launch census, checked
+        first).  A violation raises and the dispatch aborts."""
         key = (batch.workload, batch.d_bucket)
         if key in self._validated:
             return
+        eng = self.cos.engine_for(*key)
         rows = (batch.operand.shape[0] if batch.operand is not None
                 else batch.n_c)
         if self.cos.merge:
             rows = max(rows, self.cos.merge_rows_max)
-        probe = self.cos.capture(
-            *key, self.cos.operand_shape(batch.workload, batch.d_bucket,
-                                         rows))
-        check_launch_census(probe.eng, probe.calls["limb_matmul"],
-                            probe.calls["mont_fold"],
+        shape = self.cos.operand_shape(batch.workload, batch.d_bucket, rows)
+        args = (torch.zeros(shape, dtype=torch.int32,
+                            device=self.cos.device_for(batch.workload)),
+                self.cos.device_planes_for(*key))
+
+        donate = (0,) if self.cos.donate else ()
+
+        def _e2e(operand, planes):
+            return eng.e2e(operand, planes=planes)
+
+        rep = V.validate_fn(_e2e, *args, donate_argnums=donate,
+                            **V.checks_for(eng, self.cos.reduction_for(
+                                batch.workload)))
+        rep.add(V.disjoint_programs(
+            (w, prog) for w, d in self.cos.trace_counts
+            for prog in self.cos.jitted_for(w, d).values()))
+        check_launch_census(eng, rep.n_dots, rep.n_folds,
                             f"{batch.workload}/d{batch.d_bucket}")
+        rep.raise_if_failed()
         self._validated.add(key)
 
     def _class_key(self, cb: ClosedBatch) -> tuple:

@@ -252,8 +252,10 @@ def test_replay_path_does_not_take_k3():
 
 def test_kernel_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     """K2 and K3 include fold.cuh, K1 and K3 accum.cuh, all three
-    launch.cuh: an edit to a header names a new library, so it is rebuilt."""
-    assert set(build.headers()) == {"accum.cuh", "fold.cuh", "launch.cuh"}
+    launch.cuh, and all three and the graph reader instances.cuh: an edit
+    to a header names a new library, so it is rebuilt."""
+    assert set(build.headers()) == {"accum.cuh", "fold.cuh", "instances.cuh",
+                                    "launch.cuh"}
     assert "fused_ntt_tile.cu" in build.SOURCES
     assert "fused_ntt_tile_launch" in build._PROTOTYPES
     for p in build.CSRC.glob("*.cu*"):
