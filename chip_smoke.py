@@ -31,7 +31,30 @@ Phases, each printing one JSON line:
 3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
    int32, κ = 2) and a per-plane staged transform against an int64 numpy
    oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
-4. fused — ``fused_ntt_tile`` (K3) against its plain version, bit for bit,
+4. variants — the deferred core variants, one line per part.  ``table1``:
+   the Table-1 probes through K1 (``accumulator.table1_rows`` on the card,
+   one (1, K) × (K, 1) K1 call per target and model, K up to 33,419)
+   beside K1's plain version on the card and on the CPU, with the sum each
+   returned per target; the int32 rows must be all True, the fp32 entries
+   True up to 2**24 and False at 2**24 + 1 and 2**25 − 1 on every path, and
+   the CPU rows equal to the JAX package's; the fp32 entries at 2**28 and
+   2**30 are reported, not checked; then K1's time at the shapes of the 2**28
+   and 2**30 probes beside its plain version, ``torch.matmul`` and its bound.
+   ``staged_variants``: ``staged_transform_traced`` and
+   ``staged_transform_scan`` for Dilithium at d = 256 and 2048 and the
+   4-limb prime of Fig. 3 at d = 512, at 8 and 128 rows, fp32 eager and
+   int32 lazy (κ = 2 and one window, tile 171), each equal to
+   ``staged_transform`` on the same plan, to the int64 oracle and (d = 256)
+   to ``matrix_transform_ref`` on the CPU, its K1/K2 launches equal to
+   passes × La·Lw and the folds (the scan form's padded passes included).
+   ``crossover``: Fig. 3 on the card, one row of that prime, 4 × 4 limbs,
+   d = 256 … 4096: ``cooley_tukey_ntt`` equal to ``staged_transform`` (and
+   to ``fused_transform``, K3, where the plan is fused, d <= 1024) and to
+   the bignum oracle up to d = 1024; each form timed op by op and as one
+   captured CUDA graph (in turns, median of 50), with the ratio matrix ÷
+   CT, each form's launches and device kernels per call, and the matrix
+   form's t(d) / t(d/2) against the 4.0 of O(d²);
+5. fused — ``fused_ntt_tile`` (K3) against its plain version, bit for bit,
    at the fused path's shapes and at edge cases, which must reach both of its
    B-load variants, clusters of one and of more blocks and every n_diag from
    1 to 8; the single-tenant fused
@@ -45,7 +68,7 @@ Phases, each printing one JSON line:
    timed in turns per call and as graph spans (K2 is a programmatic
    dependent of K1, so the pair's profiler durations overlap and are not
    added), and one fused transform beside one staged transform;
-5. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
+6. slice — the offline multi-tenant replay (``serve_crypto``) of the paper's
    trace (λ = 4096 req/s for 0.25 s, 50:50 Dilithium:BN254, n_c = 8) and of
    the mixed eager/lazy configuration, each twice on one co-scheduler: cold
    (each of its programs, one CUDA graph of a class's whole e2e per launch
@@ -66,7 +89,7 @@ Phases, each printing one JSON line:
    counted launches, and are the kernel table's K1/K2 ``launches``), and
    one BN254 and one Dilithium dispatch time their program against the
    same ``e2e`` called op by op;
-6. validator — the structural validator (``repro_torch.core.validator``)
+7. validator — the structural validator (``repro_torch.core.validator``)
    on the card: for every class of the paper and mixed eager/lazy replays,
    the census probe of before (a plain capture) and the server's probe now
    (``validate_fn``: the capture with its graph kept, read by
@@ -83,7 +106,7 @@ Phases, each printing one JSON line:
    with V1/V2, V7, V6 and V3; one fused transform (K3) validated; one eager
    BN254 e2e under torch.profiler with every K1/K2 kernel launched inside a
    ``wzone_*`` range;
-7. online — the online server (``serve_crypto_online`` on the card, the
+8. online — the online server (``serve_crypto_online`` on the card, the
    measured service time, not the modelled one) on the same paper trace in
    three configurations, each run cold and then warm on one co-scheduler:
    (a) ``online_paper``, the defaults, which also writes its Chrome trace
@@ -100,7 +123,7 @@ Phases, each printing one JSON line:
    section, captures, peak device memory and the card's name and power
    limit; then ``online_memory``, the device memory in use and the live
    programs before the phase and after it, its co-schedulers dropped;
-8. cluster — the multi-host cluster (``serve_crypto_cluster`` on the card,
+9. cluster — the multi-host cluster (``serve_crypto_cluster`` on the card,
    every host a ``CryptoServer`` with its own co-scheduler and captured
    programs, all behind one tenant-hash ingress) on the same paper trace in
    three configurations, each run cold (fresh per-host co-schedulers) and
@@ -125,10 +148,10 @@ Phases, each printing one JSON line:
    gathered at its cordon and their rows checked), for (c), the
    ``devices`` section and the dispatch-overlap audit.
 
-Five short calls run the first phase and stop: ``--k3`` adds K3's checks
+Six short calls run the first phase and stop: ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
-and K3's checks (for a change to the fold, which K3 shares), ``--validator``
-the validator phase, ``--online`` the online phase, with the CPU replays of
+and K3's checks (for a change to the fold, which K3 shares), ``--variants``
+the variants phase, ``--validator`` the validator phase, ``--online`` the online phase, with the CPU replays of
 its two traces as the reference, and ``--cluster`` the cluster phase, with
 the CPU replay of the paper trace as the reference.
 
@@ -139,7 +162,9 @@ Nothing of JAX or of the JAX package ``repro`` is imported.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -154,9 +179,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.core import accumulator as ACC                 # noqa: E402
 from repro_torch.core import field as F                          # noqa: E402
 from repro_torch.core import limb_gemm as G                      # noqa: E402
 from repro_torch.core import ntt as NTT                          # noqa: E402
+from repro_torch.core import primes as P                         # noqa: E402
 from repro_torch.core import rns as R                            # noqa: E402
 from repro_torch.core import validator as V                      # noqa: E402
 from repro_torch.core import workloads as WK                     # noqa: E402
@@ -226,6 +253,25 @@ CLUSTER = {
                                     device_parallel=True),
 }
 OUT = Path(__file__).resolve().parent / "chiprun_out"
+# The variants phase.  Table 1: the JAX package's rows on the CPU
+# (tests/test_workloads_accumulator.py:13-16), copied, and the two models.
+TABLE1_JAX = {"tpu_v4_fp32_mantissa": [True, True, True, False, False, False, False],
+              "tpu_v5_int32_native": [True] * 7}
+ACC_MODELS = ("fp32_mantissa", "int32_native")
+# The staged variants: (label, modulus, limbs, negacyclic, d) — Dilithium and
+# the 4-limb prime of Fig. 3 — at 8 and 128 rows, under fp32 eager (passes
+# of the 171 / 128 ceiling) and int32 lazy with κ = 2 and with one window,
+# both on the replay's d_tile = 171.
+CROSSOVER_PRIME = P.ntt_friendly_primes(9, 17)[0]
+VARIANT_FIELDS = [("dilithium", Q, 3, True, 256), ("dilithium", Q, 3, True, 2048),
+                  ("fig3_4limb", CROSSOVER_PRIME, 4, False, 512)]
+VARIANT_ROWS = (8, 128)
+VARIANT_MODES = [("fp32_mantissa", "eager", None, None),
+                 ("int32_native", "lazy", 2, 171),
+                 ("int32_native", "lazy", None, 171)]
+# Fig. 3 (benchmarks/fig3_crossover.py:23-40): one row, 4 × 4 limbs,
+# fp32_mantissa, eager, fused below 1025.
+CROSSOVER_DS = (256, 512, 1024, 2048, 4096)
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -737,10 +783,22 @@ def _launch_path(dev, a, b, diags, m) -> dict:
             "mont_fold_shape": list(diags.shape), **us}
 
 
+def _oracle_mod(a: np.ndarray, w: np.ndarray, m: int) -> np.ndarray:
+    """(a @ W) mod m exactly in int64 numpy.  Where d·(m-1)² could leave
+    int64, a is split into 16-bit halves, so each partial sum stays below
+    d·2**47."""
+    w = w.astype(np.int64)
+    if a.shape[-1] * (m - 1) ** 2 < 2**63:
+        return (a.astype(np.int64) @ w) % m
+    lo = (a.astype(np.int64) & 0xFFFF) @ w % m
+    hi = (a.astype(np.int64) >> 16) @ w % m
+    return (hi * 65536 + lo) % m
+
+
 def _oracle_int64(a: np.ndarray, d: int) -> np.ndarray:
-    """(a @ W) mod Q in int64: exact, since d·Q² < 2**63 for d up to 2**17."""
-    w = NTT.ntt_matrix(d, Q, negacyclic=(Q - 1) % (2 * d) == 0).astype(np.int64)
-    return ((a.astype(np.int64) @ w) % Q).astype(np.uint32)
+    """(a @ W) mod Q for the Dilithium NTT matrix of degree d."""
+    w = NTT.ntt_matrix(d, Q, negacyclic=(Q - 1) % (2 * d) == 0)
+    return _oracle_mod(a, w, Q).astype(np.uint32)
 
 
 def phase_engines(dev):
@@ -777,6 +835,233 @@ def phase_engines(dev):
            "exact": True}
     emit(out)
     return out
+
+
+@contextlib.contextmanager
+def _counted():
+    """The K1/K2/K3 counters set to 0 for the block and a launch log open
+    over it; after the block, the dict it yields holds the counters'
+    launches and the log's calls, which must agree."""
+    _reset_counters()
+    got = {}
+    with Z.launch_log() as log:
+        yield got
+    got.update({name: c.launches for name, c in
+                (("limb_matmul", K1), ("mont_fold", K2), ("fused_ntt_tile", K3))
+                if c.launches})
+    logged = collections.Counter(r.kernel for r in log.records)
+    check(got == dict(logged), f"launches {got}, launch log {dict(logged)}")
+
+
+def _table1(dev, env: dict) -> dict:
+    """Table 1 on the card: K1's two rows (``table1_rows``), beside K1's
+    plain version on the card and on the CPU, the sum each returned per
+    target, and K1's time at the two widest probe shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with _counted() as launched:
+        rows = ACC.table1_rows(device=dev)
+    check(launched == {"limb_matmul": 2 * len(ACC.TABLE1_TARGETS)},
+          f"table1: {launched} for 14 probes")
+    cpu_rows = ACC.table1_rows(device="cpu")
+    check(cpu_rows == TABLE1_JAX,
+          f"table1: the CPU rows {cpu_rows} differ from the JAX package's")
+    sums, plain_card = [], {accum: [] for accum in ACC_MODELS}
+    for s in ACC.TABLE1_TARGETS:
+        lhs, rhs = ACC._operands_for_target(s)
+        a, b = torch.as_tensor(lhs, device=dev), torch.as_tensor(rhs, device=dev)
+        entry = {"s": s, "k": lhs.shape[1]}
+        for accum in ACC_MODELS:
+            plain = int(limb_matmul_ref(a, b, accum)[0, 0])
+            plain_card[accum].append(plain == -s)
+            entry[accum] = {"k1": ACC.probe_sum(s, accum, device=dev),
+                            "plain_card": plain,
+                            "plain_cpu": ACC.probe_sum(s, accum, device="cpu")}
+        sums.append(entry)
+    fp32_key, int32_key = TABLE1_JAX
+    plain = {key: plain_card[accum] for key, accum in zip(TABLE1_JAX, ACC_MODELS)}
+    for label, got in (("K1", rows), ("plain, card", plain), ("plain, CPU", cpu_rows)):
+        check(got[fp32_key][:5] == TABLE1_JAX[fp32_key][:5],
+              f"table1 {label}: fp32 entries up to 2**25 - 1 are {got[fp32_key][:5]}")
+        check(all(got[int32_key]), f"table1 {label}: int32 row {got[int32_key]}")
+    check([e["fp32_mantissa"]["k1"] == -e["s"] for e in sums] == rows[fp32_key],
+          "table1: K1's sums and its row differ")
+    out = {"phase": "variants", "part": "table1", "k1": rows,
+           "plain_card": plain, "plain_cpu": cpu_rows,
+           # the two fp32 entries past the window that K1's order decides
+           "fp32_beyond_window": {
+               str(s): {"k1": rows[fp32_key][i], "plain_card": plain[fp32_key][i]}
+               for i, s in enumerate(ACC.TABLE1_TARGETS) if s in (2**28, 2**30)},
+           "sums": sums, "launches": launched,
+           "k1_probe_shape": _k1_probe_times(dev, env["device"]),
+           "nvidia_smi": env["nvidia_smi"]}
+    emit(out)
+    return out
+
+
+def _k1_probe_times(dev, card: str) -> list:
+    """K1 at the shapes of the 2**28 and 2**30 probes, (1, K) × (K, 1) with
+    K = 8,356 and 33,419: one block whose 128 threads each sum K / 128 k,
+    under both models, timed in turns with its plain version and
+    ``torch.matmul`` on the same operands as floats, beside the bound."""
+    out = []
+    for s in (2**28, 2**30):
+        lhs, rhs = ACC._operands_for_target(s)
+        a, b = torch.as_tensor(lhs, device=dev), torch.as_tensor(rhs, device=dev)
+        a_f, b_f = a.float(), b.float()
+        k = lhs.shape[1]
+        t_bytes = (2 * k + 4) / bandwidth(card) * 1e3
+        t_ops = 2 * k / INT8_OPS * 1e3
+        for accum in ACC_MODELS:
+            ms = median_ms_turns({
+                "kernel": lambda: limb_matmul_cuda(a, b, accum),
+                "plain": lambda: limb_matmul_ref(a, b, accum),
+                "library": lambda: torch.matmul(a_f, b_f)}, dev)
+            out.append({
+                "shape": [1, k, 1], "accum": accum, "kernel_ms": ms["kernel"],
+                "kernel_device_ms": device_ms(
+                    lambda: limb_matmul_cuda(a, b, accum), "limb_matmul_kernel", dev),
+                "plain_ms": ms["plain"], "library_ms": ms["library"],
+                "library_device_ms": device_ms(lambda: torch.matmul(a_f, b_f),
+                                               None, dev),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "blocks": grid_blocks(1, 1)})
+    return out
+
+
+def _staged_variants(dev) -> dict:
+    """``staged_transform_traced`` and ``staged_transform_scan`` on the card
+    for every field, row count and accumulator mode of VARIANT_*: each equal
+    to ``staged_transform`` on the same per-plane plan, to the int64 oracle
+    and (d = 256) to ``matrix_transform_ref`` on the CPU, with its K1 and K2
+    launches counted (counters and launch log) against passes × La·Lw and
+    the folds (the scan form's padded passes included)."""
+    rng = np.random.default_rng(SEED + 6)
+    runs = []
+    for label, m, limbs, negacyclic, d in VARIANT_FIELDS:
+        w = NTT.ntt_matrix(d, m, negacyclic=negacyclic)
+        base = G.make_channel_plan(w, m, data_limbs=limbs, tw_limbs=limbs,
+                                   fuse_below=0)
+        w_dev = torch.as_tensor(base.w_planes, device=dev)
+        a_np = rng.integers(0, m, (max(VARIANT_ROWS), d), dtype=np.uint64)
+        want = _oracle_mod(a_np, w, m)
+        if d == 256:
+            ref = G.matrix_transform_ref(torch.as_tensor(a_np.astype(np.int64)),
+                                         torch.as_tensor(w.astype(np.int64)), m)
+            check(np.array_equal(ref.numpy(), want),
+                  f"matrix_transform_ref {label} d={d} differs from the oracle")
+        a_all = torch.as_tensor(a_np.astype(np.int64), device=dev)
+        for n in VARIANT_ROWS:
+            a = a_all[:n]
+            for accum, reduction, kappa, d_max in VARIANT_MODES:
+                plan = dataclasses.replace(base, accum=accum)
+                kw = dict(modulus=m, data_limbs=limbs, accum=accum,
+                          reduction=reduction, kappa=kappa, d_max=d_max)
+                y_ref, stats = G.staged_transform(
+                    a, plan, reduction=reduction, kappa=kappa, d_max=d_max,
+                    planes=(w_dev, None))
+                check(np.array_equal(y_ref.cpu().numpy(), want[:n]),
+                      f"staged_transform {label} d={d} {kw} differs from the oracle")
+                passes, k_eff = stats["n_passes"], stats["kappa"]
+                padded = -(-passes // k_eff) * k_eff
+                run = {"field": label, "d": d, "rows": n, "accum": accum,
+                       "reduction": reduction, "kappa": kappa, "d_max": d_max,
+                       "passes": passes}
+                for name, fn, n_pass, n_fold in (
+                        ("traced", G.staged_transform_traced, passes, stats["n_folds"]),
+                        ("scan", G.staged_transform_scan, padded,
+                         padded if reduction == "eager" else padded // k_eff)):
+                    with _counted() as got:
+                        y = fn(a, w_dev, **kw)
+                    check(got == {"limb_matmul": n_pass * limbs * limbs,
+                                  "mont_fold": n_fold},
+                          f"{name} {label} d={d} {kw}: calls {got}, expected "
+                          f"{n_pass} passes × {limbs * limbs} K1, {n_fold} K2")
+                    check(torch.equal(y, y_ref) and np.array_equal(
+                        y.cpu().numpy(), want[:n]),
+                          f"{name} {label} d={d} rows={n} {kw} is not exact")
+                    run[name] = {"passes": n_pass, **got}
+                runs.append(run)
+    out = {"phase": "variants", "part": "staged_variants", "runs": runs,
+           "exact": True}
+    emit(out)
+    return out
+
+
+def _crossover(dev, env: dict) -> dict:
+    """Fig. 3 on the card: the matrix form (``staged_transform``, K1 + K2
+    per pass), Cooley–Tukey (plain torch ops) and, where the plan is fused
+    (d <= 1024), ``fused_transform`` (K3) on one row at the widths of
+    ``benchmarks/fig3_crossover.py``; each exact, then timed op by op and as
+    one captured CUDA graph, both in turns, median of 50."""
+    rng = np.random.default_rng(SEED + 7)
+    m = CROSSOVER_PRIME
+    rows = []
+    for d in CROSSOVER_DS:
+        a_np = rng.integers(0, m, (1, d), dtype=np.uint64)
+        plan = G.make_channel_plan(NTT.ntt_matrix(d, m), m, data_limbs=4,
+                                   tw_limbs=4, fuse_below=1025)
+        planes = G.plane_operands(plan, dev)
+        a = torch.as_tensor(a_np.astype(np.int64), device=dev)
+        forms = {"matrix": lambda: G.staged_transform(a, plan, planes=planes)[0],
+                 "ct": lambda: NTT.cooley_tukey_ntt(a, m)}
+        if plan.fused_operand is not None:
+            forms["fused"] = lambda: fused_transform(a, plan, planes=planes)
+        calls, kernels, ys = {}, {}, {}
+        for name, fn in forms.items():
+            with _counted() as calls[name]:
+                ys[name] = fn()
+            kernels[name] = _kernels_per_call(fn, dev)
+        check(all(torch.equal(y, ys["ct"]) for y in ys.values()),
+              f"crossover d={d}: the forms differ")
+        if d <= 1024:
+            check(np.array_equal(ys["ct"].cpu().numpy(),
+                                 NTT.cooley_tukey_oracle_np(a_np, m).astype(np.int64)),
+                  f"crossover d={d}: Cooley–Tukey differs from the bignum oracle")
+        check(calls["matrix"] == {"limb_matmul": plan.n_passes * plan.gemms_per_pass,
+                                  "mont_fold": plan.n_passes}
+              and not calls["ct"]
+              and calls.get("fused", {}) == ({"fused_ntt_tile": plan.n_passes}
+                                             if "fused" in forms else {}),
+              f"crossover d={d}: launches {calls}")
+        graphs = {}
+        for name, fn in forms.items():
+            graph, (y,) = capture(fn, passes=1)
+            y.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize(dev)
+            check(torch.equal(y, ys[name]), f"crossover d={d}: graph {name} differs")
+            graphs[name] = graph
+        op_ms = median_ms_turns(forms, dev, runs=50, per_run=1, warmup=3)
+        graph_ms = graph_spans(graphs, dev, passes=1)
+        rows.append({"d": d, "passes": plan.n_passes,
+                     "mode": "per-plane" if plan.fused_operand is None else "fused",
+                     "op_ms": op_ms, "graph_ms": graph_ms,
+                     "ratio_matrix_to_ct": {"op": op_ms["matrix"] / op_ms["ct"],
+                                            "graph": graph_ms["matrix"] / graph_ms["ct"]},
+                     "launches": calls,
+                     "device_kernels_per_call": kernels,
+                     "exact": True})
+        del graphs
+    for prev, row in zip(rows, rows[1:]):
+        row["matrix_scaling"] = {
+            kind: row[f"{kind}_ms"]["matrix"] / prev[f"{kind}_ms"]["matrix"]
+            for kind in ("op", "graph")}
+    out = {"phase": "variants", "part": "crossover", "modulus": m,
+           "limbs": [4, 4], "fuse_below": 1025, "rows": 1, "points": rows,
+           "o_d2_predicts": 4.0, "nvidia_smi": env["nvidia_smi"]}
+    emit(out)
+    return out
+
+
+def phase_variants(dev, env: dict) -> dict:
+    """The deferred core variants on the card, one line per part: Table 1
+    through K1, the traced and scan staged transforms, the Fig. 3
+    crossover.  Each checked run is driven with the K1/K2/K3 counters set
+    to 0 just before it and read just after (``_counted``); the timing
+    runs are not counted."""
+    return {"table1": _table1(dev, env), "staged_variants": _staged_variants(dev),
+            "crossover": _crossover(dev, env)}
 
 
 def _k3_bound(n: int, k: int, d: int, nd: int, bw: float) -> tuple:
@@ -1896,11 +2181,17 @@ def _validator_class(dev, cos, cpu_cos, workload: str, d: int,
     host, view = host_operand(shape, dev)
     view[:] = live
     operand.copy_(host)
-    events = _profiled_counts(probe.replay, dev)
-    check(events == {"limb_matmul": k1, "mont_fold": k2,
-                     "fused_ntt_tile": 0},
+    # The profiler now and then drops a window's kernel events (as in
+    # _profiled_replay): a replay whose events differ from the nodes is
+    # profiled again, up to three windows, and the last mismatch raises.
+    want_events = {"limb_matmul": k1, "mont_fold": k2, "fused_ntt_tile": 0}
+    for profile_tries in range(1, 4):
+        events = _profiled_counts(probe.replay, dev)
+        if events == want_events:
+            break
+    check(events == want_events,
           f"validator {workload}/d{d}: kernel events of one replay "
-          f"{events} != the nodes {(k1, k2)}")
+          f"{events} != the nodes {(k1, k2)} in {profile_tries} windows")
     got = probe.out.to(torch.int32).cpu()
     want = cpu_cos.engine_for(workload, d).e2e(
         torch.from_numpy(live.astype(np.int64))).to(torch.int32)
@@ -1912,7 +2203,8 @@ def _validator_class(dev, cos, cpu_cos, workload: str, d: int,
            "zones": sorted(rep.zones | rep.precision_zones),
            "graph": rep.graph, "probe_capture_s": probe_capture_s,
            "read_s": probe.read_s, "probe_s": probe_s,
-           "replay_events": events, "rows_equal": True,
+           "replay_events": events, "replay_profile_tries": profile_tries,
+           "rows_equal": True,
            "pool_bytes_before": pool_before}
     del probe
     gc.collect()
@@ -2113,8 +2405,13 @@ def main():
         emit({"phase": "k3_checks",
               **k3_checks(dev, np.random.default_rng(SEED + 3))})
         return
+    if sys.argv[1:] == ["--variants"]:
+        # a short call: the build and the variants phase
+        phase_variants(dev, env)
+        return
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
+    phase_variants(dev, env)
     fused = phase_fused(dev, env["device"])
     _, paper_rows = phase_slice(dev, "paper")
     _, mixed_rows = phase_slice(dev, "mixed_eager_lazy", d_uniform=256,

@@ -18,6 +18,10 @@ the κ-window accumulator :func:`repro_torch.core.limb_gemm.staged_transform`
 drives in lazy mode: it sums unreduced int32 diagonals across passes, checks
 the analytic bound on every add, and folds once per window through
 :func:`repro_torch.core.montgomery.deferred_fold`.
+
+The Table-1 probes (``probe_exact``, ``table1_rows``) ask whether the
+accumulator path reproduces a partial sum S near and past the fp32 window;
+in the port that path is one ``limb_matmul`` call (K1 on the card).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import math
 from typing import Literal
 
 import numpy as np
+import torch
 
 # u8 × s8 worst-case pixel product (paper §5.1); the twiddle recode is
 # balanced-signed, so |w| <= 128 while data limbs stay unsigned <= 255.
@@ -224,3 +229,70 @@ class LazyWindowAccumulator:
         self.window_index += 1
         self.n_folds += 1
         return y
+
+
+# --- Table 1 probes (paper Table 1) -------------------------------------------
+
+
+def _operands_for_target(s: int) -> tuple[np.ndarray, np.ndarray]:
+    """u8/s8 operand pair whose exact dot product equals -s (s >= 0).
+
+    The probe accumulates toward the negative target so every rhs entry is
+    s8-representable.  Steps use the *odd* pixel product 253·127 = 32,131 so
+    partial sums land on generic (odd) integers — an aligned all-(255·128)
+    pattern would stay fp32-exact by 2-adic alignment and mask the mantissa
+    ceiling the paper probes.
+    """
+    step = 253 * 127
+    n_full, rem = divmod(s, step)
+    lhs = [253] * n_full
+    rhs = [-127] * n_full
+    if rem:
+        q, r = divmod(rem, 253)
+        if q:
+            lhs.append(253)
+            rhs.append(-q)
+        if r:
+            lhs.append(r)
+            rhs.append(-1)
+    lhs_a = np.asarray(lhs, np.uint8)[None, :]
+    rhs_a = np.asarray(rhs, np.int8)[:, None]
+    return lhs_a, rhs_a
+
+
+def probe_sum(s: int, accum: AccumModel, *, device=None) -> int:
+    """The sum the accumulator path returns for target ``s``: one
+    ``limb_matmul`` call, (1, K) u8 × (K, 1) s8 with ``accum`` the model,
+    whose exact value is -s.  On the card that is K1, which splits K over
+    128 threads and adds their partial sums in a tree; on the CPU it is
+    K1's plain version (``torch.mm`` in float32, or exact in float64 and
+    wrapped to int32)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.limb_matmul.ops import limb_matmul
+    dev = resolve_device(device)
+    lhs, rhs = _operands_for_target(s)
+    out = limb_matmul(torch.as_tensor(lhs, device=dev),
+                      torch.as_tensor(rhs, device=dev), accum=accum)
+    return int(out[0, 0])
+
+
+def probe_exact(s: int, accum: AccumModel, *, device=None) -> bool:
+    """True iff the accumulator path reproduces the exact partial sum |S|."""
+    return probe_sum(s, accum, device=device) == -s
+
+
+# Paper Table 1 probe targets.
+TABLE1_TARGETS = (2**23, 2**24 - 1, 2**24, 2**24 + 1, 2**25 - 1, 2**28, 2**30)
+
+
+def table1_rows(*, device=None) -> dict[str, list[bool]]:
+    """``probe_exact`` of every Table-1 target under both models, on CUDA
+    unless ``device="cpu"``.  The keys are the JAX package's, so the rows
+    compare key for key; on the card they name the accumulator model K1
+    runs (fp32 FFMA, int32 wrapping), not a TPU."""
+    return {
+        "tpu_v4_fp32_mantissa": [probe_exact(s, "fp32_mantissa", device=device)
+                                 for s in TABLE1_TARGETS],
+        "tpu_v5_int32_native": [probe_exact(s, "int32_native", device=device)
+                                for s in TABLE1_TARGETS],
+    }

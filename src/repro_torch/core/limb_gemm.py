@@ -16,6 +16,11 @@ A field dot product  y_j = Σ_i a_i · W_ij  (mod m)  is staged as:
      overflow bound) and fold once per window.  Every fold is the
      ``mont_fold`` kernel (K2) unless ``fold_fn`` swaps it.
 
+:func:`staged_transform_traced` takes the twiddle planes as an operand and
+:func:`staged_transform_scan` pads to whole κ-windows as the JAX ``lax.scan``
+form does; both run the same per-plane passes on K1 and K2.
+:func:`matrix_transform_ref` is the plain mulmod/addmod oracle.
+
 Accumulator models: ``fp32_mantissa`` (TPU v4, exact within 2**24) and
 ``int32_native`` (v5e/v5p, exact to 2**31 - 1).  The per-pass ceiling
 d_max = ⌊window / (C · 32640)⌋ gives the paper's d_max^BN = 128 and
@@ -78,7 +83,8 @@ class ChannelPlan:
     data_limbs: int
     tw_limbs: int
     accum: AccumModel
-    w_planes: np.ndarray        # (d, d, Lw) int8, balanced signed digits
+    w_planes: np.ndarray | None  # (d, d, Lw) int8, balanced signed digits;
+    #                              None when the planes are an operand
     fused_operand: np.ndarray | None  # (d·La, d·n_diag) int8, or None for big d
 
     @property
@@ -187,6 +193,19 @@ def tile_diagonals(a_tile: torch.Tensor, w_planes_tile, fused_tile,
         return torch.stack(parts, dim=-1)
 
 
+def _tile_step(d: int, d_max: int | None, ceiling: int,
+               accum: AccumModel) -> int:
+    """Width of a staging tile: ``d_max`` (default the per-pass ceiling),
+    at most d.  Property 5.1: one staging pass must itself fit the
+    accumulator window — an oversized tile silently rounds under fp32."""
+    step = min(d_max or ceiling, d)
+    if step > ceiling:
+        raise ValueError(
+            f"staging tile d_tile={step} exceeds the {accum} per-pass "
+            f"ceiling d_max={ceiling}")
+    return step
+
+
 def staged_transform(
     a: torch.Tensor,
     plan: ChannelPlan,
@@ -231,18 +250,25 @@ def staged_transform(
     GEMM (V2).
     """
     check_reduction(reduction, kappa)
-    step = min(d_max or plan.d_max, plan.d)
-    if step > plan.d_max:
-        # Property 5.1: one staging pass must itself fit the accumulator
-        # window — an oversized tile silently rounds under fp32.
-        raise ValueError(
-            f"staging tile d_tile={step} exceeds the {plan.accum} per-pass "
-            f"ceiling d_max={plan.d_max}")
+    step = _tile_step(plan.d, d_max, plan.d_max, plan.accum)
+    if planes is None:
+        planes = plane_operands(plan, a.device)
+    return _staged_passes(a, plan, plan.tile_bounds(d_max), step, planes,
+                          reduction=reduction, kappa=kappa,
+                          kernel_fn=kernel_fn, fold_fn=fold_fn)
+
+
+def _staged_passes(a, plan: ChannelPlan, tiles, step: int, planes, *,
+                   reduction: Reduction, kappa: int | None, kernel_fn=None,
+                   fold_fn=None):
+    """The passes of a staged transform over the input column ranges
+    ``tiles`` (each at most ``step`` wide): one ``kernel_fn`` call per pass,
+    then a fold per pass (eager) or per κ-window (lazy).  Returns ((N,
+    plan.d) int64, stats)."""
     kernel_fn = kernel_fn or tile_diagonals
     fold_fn = fold_fn or mont_fold
     m = plan.modulus
     n = a.shape[0]
-    tiles = plan.tile_bounds(d_max)
     stats = {"n_passes": len(tiles), "n_folds": 0, "reduction": reduction,
              "kappa": 1, "n_windows": len(tiles)}
 
@@ -255,8 +281,7 @@ def staged_transform(
         acc = ACC.LazyWindowAccumulator(plan.modulus, plan.accum, c,
                                         kappa=windows[0], fold_fn=fold_fn)
 
-    w_full, f_full = planes if planes is not None else plane_operands(
-        plan, a.device)
+    w_full, f_full = planes
     y = torch.zeros((n, plan.d), dtype=torch.int64, device=a.device)
     dev = a.device
     for t, (lo, hi) in enumerate(tiles):
@@ -279,3 +304,117 @@ def staged_transform(
                 y = F.addmod(y, acc.fold(), m)
                 stats["n_folds"] += 1
     return y, stats
+
+
+# --- Traced-operand and scan forms (per-plane only) ---------------------------
+
+
+def _planar_plan(w_planes: torch.Tensor, modulus: int, data_limbs: int,
+                 accum: AccumModel) -> ChannelPlan:
+    """The plan of a transform whose twiddle planes are an operand: its
+    metadata only (``w_planes`` is the caller's tensor, no fused layout)."""
+    d, d2, tw_limbs = w_planes.shape
+    if d != d2 or w_planes.dtype != torch.int8:
+        raise ValueError(f"w_planes must be (d, d, Lw) int8, got "
+                         f"{tuple(w_planes.shape)} {w_planes.dtype}")
+    return ChannelPlan(modulus=modulus, d=d, data_limbs=data_limbs,
+                       tw_limbs=tw_limbs, accum=accum, w_planes=None,
+                       fused_operand=None)
+
+
+def staged_transform_traced(
+    a: torch.Tensor,
+    w_planes: torch.Tensor,
+    *,
+    modulus: int,
+    data_limbs: int,
+    accum: AccumModel = "fp32_mantissa",
+    reduction: Reduction = "eager",
+    kappa: int | None = None,
+    barriers: bool = True,
+    d_max: int | None = None,
+) -> torch.Tensor:
+    """Staged transform with the twiddle limb planes as an operand.
+
+    w_planes: (d, d, Lw) int8 tensor (balanced signed digits) on the
+    device of ``a``, in place of a plan's baked planes.  Per-plane mode
+    only: each (p, q) plane product is one ``limb_matmul`` call (K1), each
+    fold one ``mont_fold`` call (K2), lazy windows go through
+    :class:`~repro_torch.core.accumulator.LazyWindowAccumulator`.  The
+    same passes, windows, checks and launches as :func:`staged_transform`
+    on a per-plane plan: ⌈d / tile⌉ passes of La·Lw K1 calls each, and one
+    K2 call per pass (eager) or per κ-window (lazy).  Returns (N, d) int64
+    residues.
+
+    ``barriers`` is accepted for the JAX signature.  There it places
+    ``optimization_barrier`` between passes (or windows) so XLA cannot
+    fuse a fold into an open summation; the port has no compiler to
+    reorder the calls, and the structural validator checks the captured
+    order (see :func:`staged_transform`).
+    """
+    plan = _planar_plan(w_planes, modulus, data_limbs, accum)
+    return staged_transform(a, plan, reduction=reduction, kappa=kappa,
+                            d_max=d_max, planes=(w_planes, None))[0]
+
+
+def staged_transform_scan(
+    a: torch.Tensor,
+    w_planes: torch.Tensor,
+    *,
+    modulus: int,
+    data_limbs: int,
+    accum: AccumModel = "fp32_mantissa",
+    d_max: int | None = None,
+    reduction: Reduction = "eager",
+    kappa: int | None = None,
+) -> torch.Tensor:
+    """The JAX package's ``lax.scan`` form of :func:`staged_transform_traced`.
+
+    As there, the input rows are padded with zeros to a whole number of
+    κ-windows of full tiles (κ = 1 when eager), and every pass is a full
+    tile.  PyTorch has no scan to keep the program O(1) in the pass count,
+    so the passes run unrolled, each on K1 and K2 as in the traced form;
+    what stays is the padding: the zero tiles contribute zero diagonals but
+    launch like any other.  With T = ⌈d / tile⌉ passes unpadded and
+    κ_eff the window depth, this runs T' = ⌈T / κ_eff⌉·κ_eff passes:
+    T'·La·Lw K1 calls, and T' K2 calls (eager) or T' / κ_eff (lazy).
+    Returns (N, d) int64 residues, equal to the traced form's.
+    """
+    check_reduction(reduction, kappa)
+    plan = _planar_plan(w_planes, modulus, data_limbs, accum)
+    d = plan.d
+    step = _tile_step(d, d_max, plan.d_max, accum)
+    k_eff = 1
+    if reduction == "lazy":
+        c = min(data_limbs, plan.tw_limbs)
+        k_eff = lazy_window_sizes(math.ceil(d / step), step, c, accum,
+                                  kappa)[0]
+    pad = (-d) % (step * k_eff)
+    if pad:
+        a = torch.cat([a, a.new_zeros((a.shape[0], pad))], dim=1)
+        w_planes = torch.cat(
+            [w_planes, w_planes.new_zeros((pad,) + w_planes.shape[1:])])
+    tiles = [(lo, lo + step) for lo in range(0, d + pad, step)]
+    return _staged_passes(a, plan, tiles, step, (w_planes, None),
+                          reduction=reduction, kappa=kappa)[0]
+
+
+def matrix_transform_ref(a: torch.Tensor, w: torch.Tensor,
+                         modulus: int) -> torch.Tensor:
+    """Plain mulmod/addmod oracle: y = a @ W mod m, no limb machinery.
+
+    a: (N, d) and w: (d, d') residues < m in integer tensors.  Returns
+    (N, d') int64.  The JAX form adds the products one by one with addmod;
+    here each chunk of rows of W sums its products (each < m < 2**31) in
+    int64 before one remainder, which gives the same value.
+    """
+    a = a.to(torch.int64)
+    w = w.to(torch.int64)
+    n, d = a.shape
+    cols = w.shape[1]
+    y = torch.zeros((n, cols), dtype=torch.int64, device=a.device)
+    step = max(1, (1 << 22) // max(1, n * cols))
+    for lo in range(0, d, step):
+        prod = F.mulmod(a[:, lo:lo + step, None], w[None, lo:lo + step], modulus)
+        y = torch.remainder(y + prod.sum(dim=1), modulus)
+    return y

@@ -17,9 +17,25 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import field as F
 from repro_torch.core import wordarith as W
 from repro_torch.core.zones import scope
 from repro_torch.kernels.mont_fold.ops import mont_fold
+
+
+def fold_diagonals_lax(diags: torch.Tensor, m: int) -> torch.Tensor:
+    """The JAX package's window-scoped fold, bit for bit: the plain
+    :func:`repro_torch.core.field.fold_diagonals` (Horner from the top
+    diagonal, floor-mod of each).  Returns int64 (...).
+
+    The JAX form emits every op through raw ``jax.lax`` primitives only so
+    that XLA's name stack stays live per window (jnp's cached inner jits
+    would stamp every window's ops with ``lazy_window_0``); the port tags
+    calls with :func:`repro_torch.core.zones.scope`, which has no such
+    cache, so nothing of that carries over.  :func:`deferred_fold`'s
+    default on the card stays the ``mont_fold`` kernel (K2).
+    """
+    return F.fold_diagonals(diags, m)
 
 
 def deferred_fold(acc_diag: torch.Tensor, modulus: int, *,
