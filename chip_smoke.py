@@ -146,14 +146,28 @@ Phases, each printing one JSON line:
    and, for (b), the failover counts and a gather-ring rescue (two hosts,
    a depth-2 ring of launched groups on the killed one, both flights
    gathered at its cordon and their rows checked), for (c), the
-   ``devices`` section and the dispatch-overlap audit.
+   ``devices`` section and the dispatch-overlap audit;
+10. examples — each crypto example of ``repro_torch.examples``
+   (``quickstart``, ``mixed_workload``, ``multi_tenant_sequencer``,
+   ``online_serving``, ``cluster_serving``) run by its ``main`` on the card,
+   its checks passed, with its K1/K2/K3 launches and what it printed;
+11. dryrun — the dry run's crypto cells (``repro_torch.launch.dryrun``:
+   ``aegis_dilithium`` and ``aegis_bn254`` at ``serve_256``, 8 rows ×
+   d = 256, and ``serve_8k``, d = 8192),
+   each captured as one graph, read, validated (V1–V7), priced by the cost
+   model (``repro_torch.launch.graph_cost``: bytes and operations per node
+   against the data sheet's rates) and replayed under torch.profiler: K1/K2
+   nodes against the fold profile, every output exact, the predicted device
+   time beside the launch floor and the profiled device time, the graph
+   pool's bytes and the card.
 
-Six short calls run the first phase and stop: ``--k3`` adds K3's checks
+Eight short calls run the first phase and stop: ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
 and K3's checks (for a change to the fold, which K3 shares), ``--variants``
 the variants phase, ``--validator`` the validator phase, ``--online`` the online phase, with the CPU replays of
-its two traces as the reference, and ``--cluster`` the cluster phase, with
-the CPU replay of the paper trace as the reference.
+its two traces as the reference, ``--cluster`` the cluster phase, with
+the CPU replay of the paper trace as the reference, ``--examples`` the
+examples phase and ``--dryrun`` the dry run's four cells.
 
 Every comparison is exact (tolerance 0).  Any failure raises, so the exit
 code is not 0 and the last line is missing.  The last two lines are the
@@ -203,9 +217,13 @@ from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  
 from repro_torch.kernels.mont_fold.kernel import grid_blocks as k2_grid_blocks  # noqa: E402
 from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
+from repro_torch.launch import dryrun as DRY                   # noqa: E402
+from repro_torch.launch import graph_cost as GC                 # noqa: E402
+from repro_torch.launch.dryrun import oracle_mod_np             # noqa: E402
 from repro_torch.launch.serve import serve_crypto, serve_crypto_cluster, serve_crypto_online  # noqa: E402
 from repro_torch.core.scheduler.coscheduler import check_launch_census, expected_kernel_calls  # noqa: E402
 from repro_torch.device import partition_devices                # noqa: E402
+from repro_torch.examples import EXAMPLES                       # noqa: E402
 from repro_torch.obs import validate_chrome_trace, validate_openmetrics  # noqa: E402
 from repro_torch.serve import ServeConfig                       # noqa: E402
 from repro_torch.serve.client import attach_payloads            # noqa: E402
@@ -213,17 +231,8 @@ from repro_torch.serve.server import CryptoServer, coscheduler_from_config  # no
 
 Q = F.DILITHIUM_Q
 SEED = 0
-# Device rates of the published data sheets (dense, no sparsity): device
-# memory bandwidth per card name, int8 tensor-core operations, and the
-# non-tensor-core float32 rate as the rate of the CUDA cores' integer work.
-BANDWIDTH = {"H200": 4.8e12, "H100": 3.35e12}
-INT8_OPS = 1.979e15
-CUDA_CORE_OPS = 67e12
-# Integer operations of the fold (csrc/fold.cuh) per diagonal: its term
-# (sign flip, multiply-high, two multiplies, subtract, and the conditional
-# subtract as a subtract and a min), then one add-mod of the tree (add,
-# subtract, min).
-FOLD_OPS_PER_DIAG = 7 + 3
+# The bounds (bytes and operations of a K1/K2/K3 call against the data
+# sheet's rates) are the cost model's: repro_torch.launch.graph_cost.
 # Back-to-back passes in one CUDA graph for the device spans.
 PASSES = 20
 # The mixed eager/lazy configuration (tests/test_serve_runtime.py:211-228).
@@ -272,6 +281,10 @@ VARIANT_MODES = [("fp32_mantissa", "eager", None, None),
 # Fig. 3 (benchmarks/fig3_crossover.py:23-40): one row, 4 × 4 limbs,
 # fp32_mantissa, eager, fused below 1025.
 CROSSOVER_DS = (256, 512, 1024, 2048, 4096)
+# The dry run's crypto cells (src/repro/launch/dryrun.py:38-42), at the JAX
+# defaults (fp32_mantissa, eager, traced).
+DRYRUN_CELLS = [(arch, shape) for arch in ("aegis_dilithium", "aegis_bn254")
+                for shape in ("serve_256", "serve_8k")]
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -331,11 +344,13 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def bandwidth(name: str) -> float:
-    for key, bw in BANDWIDTH.items():
-        if key in name:
-            return bw
-    raise AssertionError(f"no bandwidth figure for card {name!r}")
+def bound_ms(kernel: str, card: str, **args) -> tuple:
+    """The least time of one K1/K2/K3 call on ``card`` in ms
+    (``graph_cost.node_cost`` against the data sheet's rates, the GEMM on
+    the int8 tensor cores unless ``fp32`` prices it as FFMA), and what
+    bounds it."""
+    t, by = GC.bound_s(GC.node_cost(kernel, {"fp32": False, **args}), card)
+    return t * 1e3, by
 
 
 def median_ms(fn, dev, runs=50, per_run=20, warmup=10) -> float:
@@ -537,14 +552,11 @@ def phase_kernels(dev, card: str):
     for accum in ("fp32_mantissa", "int32_native"):
         k1_check(a, b_odd, accum, "B at an odd address (8, 513, 1280)")
 
-    bw = bandwidth(card)
     k1_times = []
     for n, k, m in K1_TIMED:
         a, b = k1_inputs(n, k, m)
         a_f, b_f = a.float(), b.float()
-        nbytes = n * k + k * m + 4 * n * m
-        ops = 2 * n * k * m
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / INT8_OPS * 1e3
+        bound, by = bound_ms("limb_matmul", card, n=n, k=k, m=m)
         # K1 and torch.matmul are both host-bound per call: timed in turns
         ms = median_ms_turns({
             "kernel": lambda: limb_matmul_cuda(a, b, "fp32_mantissa"),
@@ -559,8 +571,7 @@ def phase_kernels(dev, card: str):
             "plain_ms": ms["plain"],
             "library_ms": ms["library"],
             "library_device_ms": device_ms(lambda: torch.matmul(a_f, b_f), None, dev),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": by,
             "blocks": grid_blocks(n, m)})
     k2 = k2_checks(dev, rng)
     n_checked["mont_fold"], worst["mont_fold"] = k2["checked"], k2["max_abs_err"]
@@ -639,13 +650,10 @@ def k2_timings(dev, card: str, rng) -> dict:
     """K2 at each timed shape beside its bound and its plain version, with
     its grid; then the launch floor (an empty kernel's device time, read the
     same way as K2's) and K2's device time over it."""
-    bw = bandwidth(card)
     rows = []
     for n, d, nd, m in K2_TIMED:
         diags = k2_inputs(rng, dev, (n, d, nd))
-        nbytes = 4 * n * d * nd + 4 * n * d
-        ops = n * d * nd * FOLD_OPS_PER_DIAG
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / CUDA_CORE_OPS * 1e3
+        bound, by = bound_ms("mont_fold", card, n_out=n * d, n_diag=nd)
         rows.append({
             "shape": [n, d, nd], "modulus": m, "blocks": k2_grid_blocks(n * d),
             "kernel_ms": median_ms(lambda: mont_fold_cuda(diags, m), dev),
@@ -653,26 +661,13 @@ def k2_timings(dev, card: str, rng) -> dict:
                                           "mont_fold_kernel", dev),
             "plain_ms": median_ms(lambda: mont_fold_ref(diags, m), dev),
             "library_ms": None,   # no single torch call computes the fold
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-    empty_ms = device_ms(_empty_call(dev), "empty_kernel", dev)
+            "bound_ms": bound, "bound_by": by})
+    empty_ms = device_ms(build.empty_call(dev), "empty_kernel", dev)
     floor = {"device_ms": empty_ms,
              "mont_fold_ratio": [None if empty_ms is None or t["kernel_device_ms"] is None
                                  else t["kernel_device_ms"] / empty_ms
                                  for t in rows]}
     return {"mont_fold": rows, "empty_launch": floor}
-
-
-def _empty_call(dev):
-    """One launch of the empty kernel (csrc/empty.cu) on the current
-    stream."""
-    empty = build.entries()["empty_launch"]
-
-    def call():
-        build.check(empty(dev.index, build.current_stream(dev.index)),
-                    "empty_launch")
-
-    return call
 
 
 def capture(fn, passes=PASSES):
@@ -703,7 +698,7 @@ def pass_spans(dev, rng, k2_rows: list) -> list:
     the K1 → K2 graph is overwritten, the graph replayed, and each pass's
     residues must equal the eager pass's: a K2 that read before K1's stores
     were visible would fold the overwritten diagonals."""
-    empty_call = _empty_call(dev)
+    empty_call = build.empty_call(dev)
     out = []
     for (n, k, cols), (_, d, nd, m), k2 in zip(K1_TIMED, K2_TIMED, k2_rows):
         check(cols == d * nd, f"K1 {(n, k, cols)} does not feed K2 {(n, d, nd)}")
@@ -783,22 +778,10 @@ def _launch_path(dev, a, b, diags, m) -> dict:
             "mont_fold_shape": list(diags.shape), **us}
 
 
-def _oracle_mod(a: np.ndarray, w: np.ndarray, m: int) -> np.ndarray:
-    """(a @ W) mod m exactly in int64 numpy.  Where d·(m-1)² could leave
-    int64, a is split into 16-bit halves, so each partial sum stays below
-    d·2**47."""
-    w = w.astype(np.int64)
-    if a.shape[-1] * (m - 1) ** 2 < 2**63:
-        return (a.astype(np.int64) @ w) % m
-    lo = (a.astype(np.int64) & 0xFFFF) @ w % m
-    hi = (a.astype(np.int64) >> 16) @ w % m
-    return (hi * 65536 + lo) % m
-
-
 def _oracle_int64(a: np.ndarray, d: int) -> np.ndarray:
     """(a @ W) mod Q for the Dilithium NTT matrix of degree d."""
     w = NTT.ntt_matrix(d, Q, negacyclic=(Q - 1) % (2 * d) == 0)
-    return _oracle_mod(a, w, Q).astype(np.uint32)
+    return oracle_mod_np(a, w, Q).astype(np.uint32)
 
 
 def phase_engines(dev):
@@ -909,8 +892,7 @@ def _k1_probe_times(dev, card: str) -> list:
         a, b = torch.as_tensor(lhs, device=dev), torch.as_tensor(rhs, device=dev)
         a_f, b_f = a.float(), b.float()
         k = lhs.shape[1]
-        t_bytes = (2 * k + 4) / bandwidth(card) * 1e3
-        t_ops = 2 * k / INT8_OPS * 1e3
+        bound, by = bound_ms("limb_matmul", card, n=1, k=k, m=1)
         for accum in ACC_MODELS:
             ms = median_ms_turns({
                 "kernel": lambda: limb_matmul_cuda(a, b, accum),
@@ -923,8 +905,7 @@ def _k1_probe_times(dev, card: str) -> list:
                 "plain_ms": ms["plain"], "library_ms": ms["library"],
                 "library_device_ms": device_ms(lambda: torch.matmul(a_f, b_f),
                                                None, dev),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": bound, "bound_by": by,
                 "blocks": grid_blocks(1, 1)})
     return out
 
@@ -944,7 +925,7 @@ def _staged_variants(dev) -> dict:
                                    fuse_below=0)
         w_dev = torch.as_tensor(base.w_planes, device=dev)
         a_np = rng.integers(0, m, (max(VARIANT_ROWS), d), dtype=np.uint64)
-        want = _oracle_mod(a_np, w, m)
+        want = oracle_mod_np(a_np, w, m)
         if d == 256:
             ref = G.matrix_transform_ref(torch.as_tensor(a_np.astype(np.int64)),
                                          torch.as_tensor(w.astype(np.int64)), m)
@@ -1064,25 +1045,6 @@ def phase_variants(dev, env: dict) -> dict:
             "crossover": _crossover(dev, env)}
 
 
-def _k3_bound(n: int, k: int, d: int, nd: int, bw: float) -> tuple:
-    """Least time for one K3 call: each input byte read once and the output
-    written once, against the int8 GEMM on the tensor cores plus the fold's
-    integer operations on the CUDA cores."""
-    t_bytes = (n * k + k * d * nd + 4 * n * d) / bw * 1e3
-    t_ops = (2 * n * k * d * nd / INT8_OPS
-             + n * d * nd * FOLD_OPS_PER_DIAG / CUDA_CORE_OPS) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def _k3_ffma_bound(n: int, k: int, d: int, nd: int, bw: float) -> float:
-    """``_k3_bound`` with the GEMM priced as the fp32_mantissa model runs
-    it: float32 FFMA on the CUDA cores, two operations per multiply-add at
-    the data sheet's non-tensor float32 rate."""
-    t_bytes = (n * k + k * d * nd + 4 * n * d) / bw * 1e3
-    t_ops = (2 * n * k * d * nd + n * d * nd * FOLD_OPS_PER_DIAG) / CUDA_CORE_OPS * 1e3
-    return max(t_bytes, t_ops)
-
-
 def k3_inputs(rng, dev, n, k, d, nd):
     a = torch.as_tensor(rng.integers(0, 256, (n, k), dtype=np.uint8), device=dev)
     b3 = torch.as_tensor(rng.integers(-128, 128, (k, d, nd)).astype(np.int8),
@@ -1148,7 +1110,6 @@ def k3_checks(dev, rng) -> dict:
 def k3_timings(dev, card: str, rng) -> list:
     """K3 at each timed shape beside its bound, its plain version and the
     unfused pair K1 + K2 on the same pass, with its launch geometry."""
-    bw = bandwidth(card)
     k3_times = []
     for n, k, d, nd, m, accum in K3_TIMED:
         a, b3 = k3_inputs(rng, dev, n, k, d, nd)
@@ -1161,7 +1122,9 @@ def k3_timings(dev, card: str, rng) -> list:
             return mont_fold_cuda(limb_matmul_cuda(a, b2, accum).view(n, d, nd), m)
 
         check(torch.equal(fused(), pair()), f"K3 != K1 + K2 at {(n, k, d, nd)}")
-        bound, by = _k3_bound(n, k, d, nd, bw)
+        # the int8 GEMM on the tensor cores plus the fold on the CUDA cores;
+        # for fp32_mantissa also the GEMM as FFMA, as that model runs it
+        bound, by = bound_ms("fused_ntt_tile", card, n=n, k=k, d=d, n_diag=nd)
         # K3 and the pair are compared, so each clock takes them in turns.
         # The pair's device time is its span in a graph: K2 is a
         # programmatic dependent of K1, so the profiler's K2 duration holds
@@ -1179,7 +1142,8 @@ def k3_timings(dev, card: str, rng) -> list:
             # no single torch call computes the GEMM and the fold together
             "library_ms": None,
             "bound_ms": bound, "bound_by": by,
-            "ffma_bound_ms": (_k3_ffma_bound(n, k, d, nd, bw)
+            "ffma_bound_ms": (bound_ms("fused_ntt_tile", card, n=n, k=k, d=d,
+                                       n_diag=nd, fp32=True)[0]
                               if accum == "fp32_mantissa" else None),
             "unfused_ms": ms["pair"],
             "unfused_span_ms": span["pair"]})
@@ -2366,6 +2330,67 @@ def phase_validator(dev) -> dict:
     return out
 
 
+def phase_examples(dev, env: dict) -> dict:
+    """Each crypto example of ``repro_torch.examples`` run by its ``main`` on
+    the card, at its defaults, with the K1/K2/K3 counters set to 0 just
+    before it and read just after: its summary (every check of the example
+    raises on a failure), its launches, which must include K1 and K2, its
+    wall seconds and what it printed."""
+    import importlib
+    import io
+    out = {"phase": "examples", "device": str(dev),
+           "nvidia_smi": env["nvidia_smi"], "examples": {}}
+    for name in EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        printed = io.StringIO()
+        _reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            summary = module.main(["--device", str(dev)])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+                    "fused_ntt_tile": K3.launches}
+        check(summary["ok"] and summary["device"] == str(dev)
+              and launches["limb_matmul"] > 0 and launches["mont_fold"] > 0,
+              f"example {name}: {summary}, launches {launches}")
+        out["examples"][name] = {"summary": summary, "launches": launches,
+                                 "wall_s": wall,
+                                 "printed": printed.getvalue().splitlines()}
+    emit(out)
+    return out
+
+
+def phase_dryrun(dev, env: dict) -> dict:
+    """The dry run's crypto cells (``repro_torch.launch.dryrun.run_cell``)
+    on the card, each with the K1/K2/K3 counters set to 0 just before it:
+    the step captured once as a graph (its warm-up under the op census),
+    read, validated (V1–V7, no violation), priced node by node and
+    replayed (once to instantiate, five times timed, twice or more under
+    torch.profiler); every output exact (each channel against (a @ W) mod
+    m, BN254's digits against the plain ``rns_to_field`` on the CPU); the
+    K1/K2 nodes equal to the cell's fold profile, and the counters to the
+    warm-up's calls plus the replays'."""
+    out = {"phase": "dryrun", "nvidia_smi": env["nvidia_smi"], "cells": []}
+    for arch, shape in DRYRUN_CELLS:
+        _reset_counters()
+        rec = DRY.run_cell(arch, shape, device=dev)
+        torch.cuda.synchronize(dev)
+        nodes = rec["kernel_nodes"]
+        replays = rec["replays"]
+        launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
+        check(rec["status"] == "ok" and rec["exact"] and not rec["v_codes"]
+              and launches == {k: nodes[k] * (1 + replays) for k in launches}
+              and K3.launches == 0,
+              f"dryrun {arch} {shape}: status {rec['status']}, V codes "
+              f"{rec['v_codes']}, launches {launches} for nodes {nodes} and "
+              f"{replays} replays")
+        rec["launches"] = launches
+        out["cells"].append(rec)
+    emit(out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -2409,6 +2434,14 @@ def main():
         # a short call: the build and the variants phase
         phase_variants(dev, env)
         return
+    if sys.argv[1:] == ["--examples"]:
+        # a short call: the build and each example's main on the card
+        phase_examples(dev, env)
+        return
+    if sys.argv[1:] == ["--dryrun"]:
+        # a short call: the build and the four crypto cells of the dry run
+        phase_dryrun(dev, env)
+        return
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
     phase_variants(dev, env)
@@ -2423,6 +2456,8 @@ def main():
     phase_validator(dev)
     phase_online(dev, env, {"paper": paper_rows, "mixed": mixed_rows})
     phase_cluster(dev, env, paper_rows)
+    phase_examples(dev, env)
+    phase_dryrun(dev, env)
 
     rows = []
     for name, replaces, timed, launches, err in (

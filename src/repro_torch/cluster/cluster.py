@@ -81,10 +81,11 @@ class ClusterConfig:
     shed_watermark: float | None = None
     shed_transient_s: float | None = None  # None → 2 × staleness bound
     # Device-parallel fleet: partition ``device``'s devices across the host
-    # slices (repro_torch.device.partition_devices) and pin each host's
-    # programs, operands, and twiddle planes to its own slice, so host i's
-    # launches queue behind host i's — not the whole fleet's.  With fewer
-    # devices than hosts the slices share devices round-robin.  False
+    # slices (repro_torch.device.partition_devices: None or a bare "cuda"
+    # means every CUDA device) and pin each host's programs, operands, and
+    # twiddle planes to its own slice, so host i's launches queue behind
+    # host i's — not the whole fleet's.  With fewer devices than hosts the
+    # slices share devices round-robin.  False
     # (default) keeps the single-queue simulated mode, the deterministic
     # oracle device mode is proven bit-for-bit against.
     device_parallel: bool = False

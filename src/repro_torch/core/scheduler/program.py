@@ -174,13 +174,18 @@ class GraphProbe:
     ``log`` holds the capture's launch log, ``census`` the graph's nodes
     and edges, ``read_s`` the reader's host seconds and ``out`` what the
     captured ``fn()`` returned, which :meth:`replay` overwrites.  The graph
-    and ``out`` go back to the pool with the probe."""
+    and ``out`` go back to the pool with the probe.  ``warmup_mode``, a
+    context manager kept as the attribute of that name, is entered around
+    the warm-up call alone (the cost model's op census,
+    :class:`repro_torch.launch.graph_cost.OpCensus`)."""
 
-    def __init__(self, fn, device: torch.device):
+    def __init__(self, fn, device: torch.device, *, warmup_mode=None):
         pool = capture_pool(device)
         current = torch.cuda.current_stream(device)
         pool.stream.wait_stream(current)
-        with torch.cuda.stream(pool.stream):
+        self.warmup_mode = warmup_mode
+        with torch.cuda.stream(pool.stream), \
+                (warmup_mode or contextlib.nullcontext()):
             fn()                                # warm-up, counted as it runs
         current.wait_stream(pool.stream)
         torch.cuda.synchronize(device)

@@ -16,7 +16,12 @@ keeps the path itself:
 * :func:`launch_log` opens a log: while it is open, every call of a K1/K2/K3
   wrapper that does work appends one :class:`LaunchRecord` (kernel, scope
   path, the byte ranges it reads and writes, its static arguments), on the
-  CPU as on the card, and every scope opened adds its name to the log.
+  CPU as on the card, and every scope opened adds its name to the log;
+* :data:`KERNEL_CALL` marks the body of a K1/K2/K3 wrapper
+  (``with KERNEL_CALL:``), so that a walk over the ATen ops a function runs
+  (:func:`repro_torch.launch.graph_cost.op_census`) can leave out what a
+  wrapper runs: its plain version on the CPU, its output's allocation on
+  the card.
 
 The validator (:mod:`repro_torch.core.validator`) matches the log against
 the kernel nodes of a captured CUDA graph (or, on the CPU, takes the log as
@@ -74,6 +79,24 @@ def precision_zone(limbs: int, device=None):
 
 def tenant_zone(tenant_id: int, device=None):
     return scope(f"{TZONE_PREFIX}{tenant_id}", device)
+
+
+class _KernelCall:
+    """Re-entrant marker of a K1/K2/K3 wrapper's body on this thread."""
+
+    def __enter__(self):
+        _local.kernel_depth = getattr(_local, "kernel_depth", 0) + 1
+
+    def __exit__(self, *exc):
+        _local.kernel_depth -= 1
+
+
+KERNEL_CALL = _KernelCall()
+
+
+def in_kernel_call() -> bool:
+    """True inside the body of a K1/K2/K3 wrapper on this thread."""
+    return getattr(_local, "kernel_depth", 0) > 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -69,15 +69,31 @@ def resolve_devices(devices=None) -> list[torch.device]:
     return resolved
 
 
+def _every_cuda(devices) -> bool:
+    """True for the specs that name no particular card: None, ``"cuda"``
+    and ``torch.device("cuda")``."""
+    if devices is None:
+        return True
+    if isinstance(devices, (str, torch.device)):
+        dev = torch.device(devices)
+        return dev.type == "cuda" and dev.index is None
+    return False
+
+
 def partition_devices(n_parts: int, devices=None) -> list[list[torch.device]]:
     """Split devices into ``n_parts`` slices: contiguous near-even chunks when
     there are at least ``n_parts`` devices (the first ``D mod n_parts`` get
     one extra), else round-robin single devices — the same rule as the JAX
-    package's ``partition_devices``."""
+    package's ``partition_devices``, which splits every device.
+
+    A spec that names no card (None, ``"cuda"``, the entry points' default)
+    means every CUDA device here, where :func:`resolve_devices` reads a
+    bare ``"cuda"`` as the current card; ``"cuda:N"``, a list and
+    ``"cpu"`` mean what they say."""
     if n_parts < 1:
         raise ValueError(f"partition_devices needs n_parts >= 1, "
                          f"got {n_parts}")
-    devs = resolve_devices(devices)
+    devs = resolve_devices(None if _every_cuda(devices) else devices)
     if len(devs) >= n_parts:
         base, extra = divmod(len(devs), n_parts)
         out, lo = [], 0

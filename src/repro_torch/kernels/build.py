@@ -217,6 +217,19 @@ def pointers(name: str, *tensors: torch.Tensor) -> list[int]:
     return [t.data_ptr() for t in tensors]
 
 
+def empty_call(device: torch.device):
+    """A function that launches the empty kernel (``csrc/empty.cu``, one
+    block of one thread) on ``device``'s current stream: the launch floor
+    that measurements set a kernel's device time against.  No counter sees
+    it."""
+    fn = entries()["empty_launch"]
+
+    def call():
+        check(fn(device.index, current_stream(device.index)), "empty_launch")
+
+    return call
+
+
 def launch(name: str, like: torch.Tensor, *args):
     """Call the C entry ``name`` with ``args``, then the device index of
     ``like`` and PyTorch's current stream on that device; raise on a

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.zones import record_launch
+from repro_torch.core.zones import KERNEL_CALL, record_launch
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER, fused_ntt_tile_cuda
 from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref
 from repro_torch.kernels.limb_matmul.ops import ACCUMS
@@ -36,15 +36,18 @@ def fused_ntt_tile(a_u8: torch.Tensor, b3_s8: torch.Tensor, *, modulus: int,
     if a_u8.device != b3_s8.device:
         raise ValueError(f"operands on {a_u8.device} and {b3_s8.device}")
     COUNTER.calls += 1
-    if a_u8.is_cuda:
-        if not (a_u8.is_contiguous() and b3_s8.is_contiguous()):
-            raise ValueError("fused_ntt_tile needs contiguous row-major operands")
-        out = fused_ntt_tile_cuda(a_u8, b3_s8, modulus, accum)
-    elif a_u8.is_cpu:
-        out = fused_ntt_tile_ref(a_u8, b3_s8, modulus, accum).to(torch.int32)
-    else:
-        raise ValueError(f"fused_ntt_tile runs on cuda or cpu, not "
-                         f"{a_u8.device}")
+    with KERNEL_CALL:     # what the kernel runs, not its caller
+        if a_u8.is_cuda:
+            if not (a_u8.is_contiguous() and b3_s8.is_contiguous()):
+                raise ValueError(
+                    "fused_ntt_tile needs contiguous row-major operands")
+            out = fused_ntt_tile_cuda(a_u8, b3_s8, modulus, accum)
+        elif a_u8.is_cpu:
+            out = fused_ntt_tile_ref(a_u8, b3_s8, modulus,
+                                     accum).to(torch.int32)
+        else:
+            raise ValueError(f"fused_ntt_tile runs on cuda or cpu, not "
+                             f"{a_u8.device}")
     n, k = a_u8.shape
     _, d, n_diag = b3_s8.shape
     record_launch("fused_ntt_tile", (a_u8, b3_s8), out, n=n, k=k, d=d,

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.zones import record_launch
+from repro_torch.core.zones import KERNEL_CALL, record_launch
 from repro_torch.kernels.limb_matmul.kernel import COUNTER, limb_matmul_cuda
 from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref
 
@@ -30,14 +30,17 @@ def limb_matmul(a_u8: torch.Tensor, b_s8: torch.Tensor, *,
     if a_u8.device != b_s8.device:
         raise ValueError(f"operands on {a_u8.device} and {b_s8.device}")
     COUNTER.calls += 1
-    if a_u8.is_cuda:
-        if not (a_u8.is_contiguous() and b_s8.is_contiguous()):
-            raise ValueError("limb_matmul needs contiguous row-major operands")
-        out = limb_matmul_cuda(a_u8, b_s8, accum)
-    elif a_u8.is_cpu:
-        out = limb_matmul_ref(a_u8, b_s8, accum)
-    else:
-        raise ValueError(f"limb_matmul runs on cuda or cpu, not {a_u8.device}")
+    with KERNEL_CALL:     # what the kernel runs, not its caller
+        if a_u8.is_cuda:
+            if not (a_u8.is_contiguous() and b_s8.is_contiguous()):
+                raise ValueError(
+                    "limb_matmul needs contiguous row-major operands")
+            out = limb_matmul_cuda(a_u8, b_s8, accum)
+        elif a_u8.is_cpu:
+            out = limb_matmul_ref(a_u8, b_s8, accum)
+        else:
+            raise ValueError(
+                f"limb_matmul runs on cuda or cpu, not {a_u8.device}")
     n, k = a_u8.shape
     record_launch("limb_matmul", (a_u8, b_s8), out, n=n, k=k,
                   m=b_s8.shape[1], fp32=accum == "fp32_mantissa")

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.zones import record_launch
+from repro_torch.core.zones import KERNEL_CALL, record_launch
 from repro_torch.kernels.mont_fold.kernel import COUNTER, mont_fold_cuda
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref
 
@@ -26,14 +26,16 @@ def mont_fold(diags: torch.Tensor, modulus: int) -> torch.Tensor:
         raise ValueError(f"mont_fold needs 1..{MAX_DIAG} diagonals on the "
                          f"last axis, got shape {tuple(diags.shape)}")
     COUNTER.calls += 1
-    if diags.is_cuda:
-        if not diags.is_contiguous():
-            raise ValueError("mont_fold needs contiguous diagonals")
-        out = mont_fold_cuda(diags, modulus)
-    elif diags.is_cpu:
-        out = mont_fold_ref(diags, modulus).to(torch.int32)
-    else:
-        raise ValueError(f"mont_fold runs on cuda or cpu, not {diags.device}")
+    with KERNEL_CALL:     # what the kernel runs, not its caller
+        if diags.is_cuda:
+            if not diags.is_contiguous():
+                raise ValueError("mont_fold needs contiguous diagonals")
+            out = mont_fold_cuda(diags, modulus)
+        elif diags.is_cpu:
+            out = mont_fold_ref(diags, modulus).to(torch.int32)
+        else:
+            raise ValueError(
+                f"mont_fold runs on cuda or cpu, not {diags.device}")
     record_launch("mont_fold", (diags,), out, n_out=out.numel(),
                   n_diag=diags.shape[-1], modulus=modulus)
     return out

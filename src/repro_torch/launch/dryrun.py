@@ -1,0 +1,451 @@
+"""Dry run of the crypto cells on one card: the port's counterpart of the
+crypto side of the JAX package's ``launch/dryrun.py`` (``_crypto_cell`` and
+the ``aegis_`` branch of ``run_cell``).
+
+The JAX cell lowers the Aegis sequencer op for a pod slice's stacked batch
+from ``ShapeDtypeStruct``s and reads the compiled module's cost.  Here the
+cell runs for real, on seeded data: ``a`` uniform in [0, m), the twiddle
+planes random balanced int8 digits of the JAX shapes, whole on the one
+card (the JAX cell shards them over the 16×16 mesh's ``"model"`` axis, so
+a cell here reads 16× a mesh device's plane bytes for the same
+multiply-adds).  ``rows`` is ``rows_per_core`` × 1 device, as the JAX
+cell's are ``rows_per_core`` × its devices.  The step is JAX's, zones
+included (``wzone_*``, ``pzone_3limb`` / ``pzone_4limb``, ``channel_i`` per
+BN254 channel, ``vpu_montgomery`` around ``rns_to_field``), through
+``staged_transform_traced`` or ``staged_transform_scan`` on ``accum``,
+``reduction``, ``kappa``.
+
+On CUDA the step is captured once as a graph (a ``GraphProbe`` whose warm-up
+runs under the cost model's op census), read node by node, validated
+(V1–V7), priced (:mod:`repro_torch.launch.graph_cost`) and replayed under
+torch.profiler for its device time.  On the CPU (``device="cpu"``) it runs
+once eagerly under the op census, and the launch log stands in for the
+graph.  Either way every output is checked: each channel against the int64
+oracle (a @ W) mod m, BN254's field digits against the plain
+``rns_to_field`` of the same channel outputs on the CPU; and the K1/K2
+nodes against the cell's fold profile.  A failed check raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --arch aegis_dilithium,aegis_bn254 --shape serve_256,serve_8k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+        --shape serve_256 --device cpu
+
+Records go to ``build/dryrun/`` (``--out`` elsewhere), one JSON file per
+cell.  The 512-device mesh (``--mesh``) and the LM cells are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.core import limb_gemm as G
+from repro_torch.core import limbs as L
+from repro_torch.core import rns as R
+from repro_torch.core import validator as V
+from repro_torch.core import workloads as WK
+from repro_torch.core import zones as Z
+from repro_torch.core.field import DILITHIUM_Q
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build
+from repro_torch.launch import graph_cost as GC
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+
+CRYPTO_SHAPES = {
+    # stacked-batch crypto serving cells (rows × degree)
+    "serve_256": dict(rows_per_core=8, d=256),
+    "serve_8k": dict(rows_per_core=8, d=8192),
+}
+WORKLOADS = {"aegis_bn254": "bn254", "aegis_dilithium": "dilithium"}
+LIMBS = {"dilithium": 3, "bn254": 4}
+K1, K2 = GC.K1, GC.K2
+# The card the CPU's records are priced against (no card to ask).
+MODEL_CARD = "H100"
+
+
+def _check(cond, what: str):
+    if not cond:
+        raise AssertionError(what)
+
+
+def moduli(workload: str) -> tuple:
+    return ((DILITHIUM_Q,) if workload == "dilithium"
+            else tuple(R.make_chain(9).moduli))
+
+
+def cell_inputs(workload: str, rows: int, d: int, seed: int = 0) -> tuple:
+    """Seeded numpy inputs of a cell: ``a`` (rows, d) uint32 uniform in
+    [0, Q) for Dilithium, (rows, d, 9) with channel c uniform in [0, m_c)
+    for BN254; the twiddle planes (d, d, 3) or (9, d, d, 4) int8, random
+    balanced digits in [-128, 127]."""
+    rng = np.random.default_rng(seed)
+    ms = moduli(workload)
+    a = np.stack([rng.integers(0, m, (rows, d), dtype=np.uint64)
+                  for m in ms], axis=-1).astype(np.uint32)
+    shape = (len(ms), d, d, LIMBS[workload])
+    w = rng.integers(-128, 128, shape, dtype=np.int8)
+    if workload == "dilithium":
+        return a[..., 0], w[0]
+    return a, w
+
+
+def make_step(workload: str, *, accum="fp32_mantissa", reduction="eager",
+              kappa=None, scan_staging=False):
+    """The cell's step ``step(a, w)``, JAX's ``_crypto_cell`` step: the
+    staged transform (traced or scan form) of every channel in its zones.
+    Dilithium returns its (rows, d) residues; BN254 ``(y, digits)``: the
+    (rows, d, 9) channel residues and ``rns_to_field`` of them under
+    ``vpu_montgomery``."""
+    transform = (G.staged_transform_scan if scan_staging
+                 else G.staged_transform_traced)
+    limbs = LIMBS[workload]
+    kw = dict(data_limbs=limbs, accum=accum, reduction=reduction, kappa=kappa)
+
+    if workload == "dilithium":
+        def step(a, w):
+            with Z.workload_zone("dilithium", a.device), \
+                    Z.precision_zone(3, a.device):
+                return transform(a, w, modulus=DILITHIUM_Q, **kw)
+        return step
+
+    chain = R.make_chain(9)
+
+    def step(a, w):
+        dev = a.device
+        with Z.workload_zone("bn254", dev), Z.precision_zone(4, dev):
+            outs = []
+            for ci, m in enumerate(chain.moduli):
+                with Z.scope(f"channel_{ci}", dev):
+                    outs.append(transform(a[..., ci], w[ci], modulus=m, **kw))
+            y = torch.stack(outs, dim=-1)
+            with Z.scope("vpu_montgomery", dev):
+                return y, R.rns_to_field(y, chain)
+    return step
+
+
+def cell_profile(workload: str, d: int, *, accum="fp32_mantissa",
+                 reduction="eager", kappa=None, scan_staging=False) -> dict:
+    """The cell's fold profile (``workloads._fold_profile`` of its per-plane
+    channel plans) and the K1/K2 calls it makes: passes × La·Lw K1 and one K2
+    per fold, per channel; the scan form pads its passes to whole
+    κ-windows, as ``staged_transform_scan`` does."""
+    limbs = LIMBS[workload]
+    plan = G.ChannelPlan(modulus=moduli(workload)[0], d=d, data_limbs=limbs,
+                         tw_limbs=limbs, accum=accum, w_planes=None,
+                         fused_operand=None)
+    channels = len(moduli(workload))
+    prof = WK._fold_profile([plan] * channels, reduction, kappa, None)
+    passes, windows = prof["n_passes"], prof["windows_per_channel"]
+    if scan_staging:
+        step = min(plan.d_max, d)
+        k_eff = (G.lazy_window_sizes(passes, step, limbs, accum, kappa)[0]
+                 if reduction == "lazy" else 1)
+        passes = -(-passes // k_eff) * k_eff
+        windows = passes // k_eff
+    return dict(prof, n_passes=passes, windows_per_channel=windows,
+                n_folds=windows * channels,
+                launches={K1: passes * limbs * limbs * channels,
+                          K2: windows * channels})
+
+
+def _checks(prof: dict) -> dict:
+    """The validator's checks for a cell: eager, V1/V2 over its passes; lazy,
+    V6/V7 over its κ-windows, as ``validator.checks_for``."""
+    if prof["reduction"] == "eager":
+        return {"expected_passes": prof["n_passes"]}
+    return {"expect_eager": False, "expected_windows": prof["n_folds"],
+            "n_diag": prof["n_diag"]}
+
+
+def oracle_mod_np(a: np.ndarray, w: np.ndarray, m: int) -> np.ndarray:
+    """(a @ W) mod m exactly in int64 numpy, for residues a and W in
+    [0, m).  Where d·(m-1)² could leave int64, a is split into 16-bit
+    halves, so each partial sum stays below d·2**47.  W is laid out by
+    columns first, so numpy's integer product (no BLAS) reads both operands
+    in order."""
+    w = np.asfortranarray(w, dtype=np.int64)
+    a = a.astype(np.int64)
+    if a.shape[-1] * (m - 1) ** 2 < 2**63:
+        return (a @ w) % m
+    lo = (a & 0xFFFF) @ w % m
+    hi = (a >> 16) @ w % m
+    return (hi * 65536 + lo) % m
+
+
+def channel_oracle(a: np.ndarray, w: np.ndarray, workload: str) -> np.ndarray:
+    """Every channel of the cell against its int64 oracle: (rows, d) for
+    Dilithium, (rows, d, 9) for BN254."""
+    if workload == "dilithium":
+        return oracle_mod_np(a, L.signed_digits_value(w) % DILITHIUM_Q,
+                             DILITHIUM_Q)
+    return np.stack([oracle_mod_np(a[..., c], L.signed_digits_value(w[c]) % m,
+                                   m)
+                     for c, m in enumerate(moduli(workload))], axis=-1)
+
+
+def _check_outputs(out, a, w, workload: str, label: str) -> dict:
+    """The cell's outputs against the oracles; seconds each took."""
+    t0 = time.perf_counter()
+    want = channel_oracle(a, w, workload)
+    oracle_s = time.perf_counter() - t0
+    y = out if workload == "dilithium" else out[0]
+    _check(np.array_equal(y.cpu().numpy(), want),
+           f"{label}: the channel transforms differ from (a @ W) mod m")
+    out_s = {"oracle_s": oracle_s}
+    if workload == "bn254":
+        t0 = time.perf_counter()
+        plain = R.rns_to_field(torch.from_numpy(want), R.make_chain(9))
+        out_s["rns_plain_s"] = time.perf_counter() - t0
+        _check(torch.equal(out[1].cpu(), plain),
+               f"{label}: rns_to_field differs from its plain run on the "
+               f"CPU")
+    return out_s
+
+
+def _kernel_events(prof):
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            yield ev
+
+
+def _profiled_replay(probe, dev, want: dict, tries: int = 3) -> dict:
+    """One replay of the probe's graph under torch.profiler: its device
+    busy time, kernel events and K1/K2 events, which must equal the graph's
+    nodes.  A window that starts tracing with the replay can miss the
+    graph's first kernels, so each window replays the graph twice and
+    records the second (a warm-up step of the profiler's schedule); one
+    whose K1/K2 events still fall short is profiled again, up to
+    ``tries``.  ``replays`` counts every replay made."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                probe.replay()
+                torch.cuda.synchronize(dev)
+                prof.step()
+        events = list(_kernel_events(prof))
+        counts = {name: sum(ev.count for ev in events
+                            if f"{name}_kernel" in ev.key)
+                  for name in want}
+        if counts == want:
+            return {"device_ms": sum(ev.self_device_time_total
+                                     for ev in events) / 1e3,
+                    "events": sum(ev.count for ev in events),
+                    "k_events": counts, "profile_tries": attempt,
+                    "replays": 2 * attempt}
+    raise AssertionError(f"profiled replay: kernel events {counts} != the "
+                         f"graph's nodes {want} in {tries} windows")
+
+
+def empty_kernel_ms(dev, n: int = 50) -> float:
+    """Mean device time of the empty kernel (``csrc/empty.cu``), the launch
+    floor, over the launches torch.profiler recorded of ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+    call = build.empty_call(dev)
+    call()
+    torch.cuda.synchronize(dev)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize(dev)
+        empty = [ev for ev in _kernel_events(prof) if "empty_kernel" in ev.key]
+        count = sum(ev.count for ev in empty)
+        if count:
+            return sum(ev.self_device_time_total for ev in empty) / count / 1e3
+    raise AssertionError("empty kernel: the profiler showed no device time")
+
+
+def _replay_ms(probe, dev, runs: int = 5) -> float:
+    """Median time of one replay of the probe's graph between CUDA events
+    (the graph instantiated first)."""
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        probe.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def run_cell(arch: str, shape: str, *, accum: str = "fp32_mantissa",
+             reduction: str = "eager", kappa: int | None = None,
+             scan_staging: bool = False, tag: str = "",
+             device=None) -> dict:
+    """Run one crypto cell on ``device`` (CUDA unless ``"cpu"``) and return
+    its record: the JAX record's keys where they mean something here
+    (``arch``, ``shape``, ``status``, ``rows``, ``d``, ``workload``,
+    ``accum``, ``reduction``, ``kappa``, ``scan_staging``, ``roofline``),
+    ``mesh`` "1", the nodes by kernel and the edges (the launch log's
+    records on the CPU), the input and graph-pool bytes in place of
+    ``memory_analysis``, ``capture_s`` in place of ``compile_s``, the
+    predicted device time (the sum of each kernel's least time) beside the
+    launch floor (kernel nodes × the empty kernel's device time) and the
+    profiled device time (None on the CPU: not measured), and the V codes.
+    Any failed check raises."""
+    t_start = time.perf_counter()
+    dev = resolve_device(device)
+    workload = WORKLOADS[arch]
+    spec = CRYPTO_SHAPES[shape]
+    rows, d = spec["rows_per_core"] * 1, spec["d"]      # one device
+    prof = cell_profile(workload, d, accum=accum, reduction=reduction,
+                        kappa=kappa, scan_staging=scan_staging)
+    record = {"arch": arch, "shape": shape, "mesh": "1", "status": "ok",
+              "tag": tag, "device": str(dev), "rows": rows, "d": d,
+              "workload": workload, "accum": accum, "reduction": reduction,
+              "kappa": kappa, "scan_staging": scan_staging,
+              "fold_profile": prof}
+    label = f"{arch} {shape}"
+    a_np, w_np = cell_inputs(workload, rows, d)
+    a = torch.as_tensor(a_np.astype(np.int64), device=dev)
+    w = torch.as_tensor(w_np, device=dev)
+    record["input_bytes"] = a.numel() * a.element_size() + w.numel()
+    step = make_step(workload, accum=accum, reduction=reduction, kappa=kappa,
+                     scan_staging=scan_staging)
+    checks = _checks(prof)
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else MODEL_CARD
+    record["card"] = card
+    if dev.type == "cuda":
+        from repro_torch.core.scheduler.program import (GraphProbe,
+                                                        capture_pool)
+        pool = capture_pool(dev)
+        pool_before = pool.bytes()
+        t0 = time.perf_counter()
+        probe = GraphProbe(lambda: step(a, w), dev,
+                           warmup_mode=GC.OpCensus())
+        record["capture_s"] = time.perf_counter() - t0
+        record["read_s"] = probe.read_s
+        record["pool_bytes"] = {k: v - pool_before[k]
+                                for k, v in pool.bytes().items()}
+        rep = V.validate_probe(probe, **checks)
+        cost = GC.program_cost(probe, card=card)
+        record["edges"] = rep.graph["edges"]
+        record["nodes"] = rep.graph["nodes"]
+    else:
+        t0 = time.perf_counter()
+        census = GC.op_census(step, a, w)
+        record["capture_s"] = time.perf_counter() - t0
+        nodes, edges = V.record_nodes(census.log.records)
+        rep = V.check(census.log.records, nodes, edges,
+                      scopes=census.log.scopes, **checks)[0]
+        cost = GC.log_cost(census, card=card)
+        record["edges"] = {"full": len(edges), "programmatic": 0}
+        record["nodes"] = None
+    record["v_codes"] = sorted({v[0] for v in rep.violations})
+    _check(rep.ok, f"{label}: the validator flags {rep.violations[:4]}")
+    kernel_nodes = cost["kernel_nodes"]
+    _check({K1: kernel_nodes[K1], K2: kernel_nodes[K2]} == prof["launches"]
+           and (rep.n_dots, rep.n_folds) == (kernel_nodes[K1],
+                                              kernel_nodes[K2])
+           and kernel_nodes[GC.K3] == 0,
+           f"{label}: K1/K2 nodes {kernel_nodes}, the fold profile "
+           f"{prof['launches']}")
+    record.update(kernel_nodes=kernel_nodes, aten_ops=cost["aten_ops"],
+                  aten_top=cost["aten_top"],
+                  n_barriers=rep.n_barriers, cost=cost["cost"],
+                  cost_by_kernel=cost["cost_by_kernel"],
+                  roofline=cost["roofline"],
+                  predicted_device_ms=cost["predicted_device_s"] * 1e3)
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        probe.replay()                          # instantiates the graph
+        torch.cuda.synchronize(dev)
+        record["instantiate_s"] = time.perf_counter() - t0
+        record["replay_ms"] = _replay_ms(probe, dev)
+        profiled = _profiled_replay(probe, dev, prof["launches"])
+        record.update(profiled, replays=1 + 5 + profiled["replays"])
+        record["empty_kernel_ms"] = empty_kernel_ms(dev)
+        k_total = sum(v for v in kernel_nodes.values() if v)
+        record["launch_floor_ms"] = k_total * record["empty_kernel_ms"]
+        record["profiled_over_predicted"] = (record["device_ms"]
+                                             / record["predicted_device_ms"])
+        out = probe.out
+    else:
+        out = census.out
+        record.update(device_ms=None, replay_ms=None, launch_floor_ms=None)
+    record.update(_check_outputs(out, a_np, w_np, workload, label))
+    record["exact"] = True
+    record["wall_s"] = time.perf_counter() - t_start
+    return record
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="all",
+                    help="aegis_dilithium, aegis_bn254, a comma list, or "
+                         "'all' (the two crypto archs)")
+    ap.add_argument("--shape", default="all",
+                    help=f"{', '.join(CRYPTO_SHAPES)}, a comma list or 'all'")
+    ap.add_argument("--accum", default="fp32_mantissa",
+                    choices=["fp32_mantissa", "int32_native"])
+    ap.add_argument("--reduction", default="eager", choices=["eager", "lazy"])
+    ap.add_argument("--kappa", type=int, default=None,
+                    help="lazy deferral window depth (passes per fold)")
+    ap.add_argument("--scan-staging", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default), 'cuda:N' or 'cpu'")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out", default=None,
+                    help=f"record directory (default {OUT_DIR})")
+    args = ap.parse_args(argv)
+    resolve_device(args.device)         # no CUDA and no --device cpu: raise
+
+    archs = sorted(WORKLOADS) if args.arch == "all" else args.arch.split(",")
+    shapes = (list(CRYPTO_SHAPES) if args.shape == "all"
+              else args.shape.split(","))
+    for name, known, what in ((archs, WORKLOADS, "arch"),
+                              (shapes, CRYPTO_SHAPES, "shape")):
+        unknown = [n for n in name if n not in known]
+        if unknown:
+            ap.error(f"unknown {what} {unknown}; expected {sorted(known)}")
+    out_dir = Path(args.out) if args.out else OUT_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    failed = 0
+    for arch in archs:
+        for shape in shapes:
+            try:
+                rec = run_cell(arch, shape, accum=args.accum,
+                               reduction=args.reduction, kappa=args.kappa,
+                               scan_staging=args.scan_staging, tag=args.tag,
+                               device=args.device)
+            except Exception as e:  # noqa: BLE001 - a failed cell's record
+                failed += 1
+                rec = {"arch": arch, "shape": shape, "mesh": "1",
+                       "status": "error", "tag": args.tag,
+                       "error": f"{type(e).__name__}: {e}",
+                       "trace": traceback.format_exc()[-2000:]}
+            suffix = f"_{args.tag}" if args.tag else ""
+            path = out_dir / f"{arch}__{shape}__1{suffix}.json"
+            path.write_text(json.dumps(rec, indent=1))
+            roof = rec.get("roofline", {})
+            dev_ms = rec.get("device_ms")
+            measured = ("not measured" if dev_ms is None
+                        else f"{dev_ms:.4g}ms")
+            predicted = rec.get("predicted_device_ms", math.nan)
+            print(f"[{rec['status']:7s}] {arch:16s} {shape:10s} "
+                  f"dom={roof.get('dominant', '-'):8s} "
+                  f"K1/K2={rec.get('kernel_nodes', {}).get(K1, '-')}/"
+                  f"{rec.get('kernel_nodes', {}).get(K2, '-')} "
+                  f"predicted={predicted:.4g}ms device={measured} "
+                  f"capture={rec.get('capture_s', 0):.2f}s "
+                  f"{rec.get('error', '')[:120]}", flush=True)
+    if failed:
+        raise SystemExit(f"{failed} cell(s) failed")
+
+
+if __name__ == "__main__":
+    main()

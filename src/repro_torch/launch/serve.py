@@ -211,7 +211,8 @@ def serve_crypto_cluster(*, hosts=2, duration_s=0.05, rate_hz=2048, n_c=8,
     Every host's co-scheduler is built on ``device`` (CUDA unless
     ``device="cpu"``; without a GPU the default raises, nothing falls
     back), unless ``coscheduler_factory(host)`` builds it; under
-    ``device_parallel`` each host gets its slice of ``device``'s devices.
+    ``device_parallel`` each host gets its slice of ``device``'s devices,
+    and the default ``"cuda"`` (or None) means every CUDA device.
     ``trace`` overrides the Poisson trace; ``trace_out`` switches
     request-lifecycle tracing on and writes the merged fleet Chrome-trace
     JSON there.
@@ -271,7 +272,15 @@ def serve_crypto_cluster(*, hosts=2, duration_s=0.05, rate_hz=2048, n_c=8,
     return load, snap, dt
 
 
-def _print_cluster(args, load, snap, dt):
+def _launched(before: tuple) -> str:
+    """K1/K2 launches since ``before`` (the counters at the run's start), so
+    that the line reports the run's own whatever ran earlier in the
+    process."""
+    return (f"limb_matmul={K1.launches - before[0]} "
+            f"mont_fold={K2.launches - before[1]}")
+
+
+def _print_cluster(args, load, snap, dt, before):
     m = snap["merged"]
     served = sum(1 for h in load.handles if h.done() and not h.rejected)
     print(f"cluster[{args.hosts} hosts]: served {served}/"
@@ -297,7 +306,7 @@ def _print_cluster(args, load, snap, dt):
           f"{bar['batches_flushed']} batches flushed, "
           f"complete={bar['complete']}, "
           f"in-flight={bar['inflight_groups']}; kernel launches "
-          f"limb_matmul={K1.launches} mont_fold={K2.launches}")
+          f"{_launched(before)}")
     if args.device_parallel:
         dv, ov = snap["devices"], snap["dispatch_overlap"]
         print(f"devices: per-host {dv['per_host']} "
@@ -338,7 +347,7 @@ def _print_cluster(args, load, snap, dt):
         print(f"fleet trace → {args.trace_out} (open in ui.perfetto.dev)")
 
 
-def _print_online(args, load, snap, dt):
+def _print_online(args, load, snap, dt, before):
     lat = snap["latency"]
     print(f"online: served {load.n_served}/{len(load.handles)} requests "
           f"({len(load.rejected)} rejected) in {dt:.2f}s wall on "
@@ -359,7 +368,7 @@ def _print_online(args, load, snap, dt):
           f"{disp['batches_per_dispatch_mean']:.2f} batches/launch), "
           f"M-occ {disp['m_occupancy_mean']:.3f} "
           f"M-fill {disp['m_fill_mean']:.3f}; kernel launches "
-          f"limb_matmul={K1.launches} mont_fold={K2.launches}")
+          f"{_launched(before)}")
     if args.controller:
         ctl, hb = snap["controller"], snap["holdback"]
         classes = ", ".join(
@@ -386,7 +395,7 @@ def _print_online(args, load, snap, dt):
         print(f"trace → {args.trace_out} (open in ui.perfetto.dev)")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["crypto", "crypto-online"],
                     default="crypto")
@@ -420,8 +429,8 @@ def main():
                          "slices and pin each host's programs/operands/"
                          "twiddle planes to its own slice (cluster mode; "
                          "with fewer devices than hosts, round-robin; "
-                         "'cuda' names the current card only, "
-                         "serve_crypto_cluster(device=None) every card)")
+                         "the default 'cuda' means every card, 'cuda:N' "
+                         "that card alone)")
     ap.add_argument("--tenant-rate", type=float, default=None,
                     help="per-tenant token-bucket rate (req/s)")
     ap.add_argument("--slo-ms", type=float, default=None,
@@ -489,7 +498,7 @@ def main():
                     help="per-tenant TokenBucket dict instead of the "
                          "columnar (structured-array) admission state — the "
                          "bit-identical oracle path")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     reduction_by_workload = None
     if args.reduction_by_workload:
@@ -501,6 +510,7 @@ def main():
                      f", e.g. 'dilithium=lazy' (got "
                      f"{args.reduction_by_workload!r})")
 
+    before = (K1.launches, K2.launches)
     if args.mode == "crypto-online" and args.hosts > 1:
         load, snap, dt = serve_crypto_cluster(
             hosts=args.hosts, duration_s=args.duration, rate_hz=args.rate,
@@ -526,7 +536,7 @@ def main():
             columnar_admission=not args.scalar_admission,
             fault_plan=args.fault_plan, shed_watermark=args.shed_watermark,
             device_parallel=args.device_parallel, device=args.device)
-        _print_cluster(args, load, snap, dt)
+        _print_cluster(args, load, snap, dt, before)
         return
     if args.mode == "crypto-online":
         load, snap, dt = serve_crypto_online(
@@ -552,7 +562,7 @@ def main():
             realtime=args.realtime, arrival_batch=args.arrival_batch,
             columnar_admission=not args.scalar_admission,
             device=args.device)
-        _print_online(args, load, snap, dt)
+        _print_online(args, load, snap, dt, before)
         return
     results, n_ops, dt = serve_crypto(duration_s=args.duration,
                                       rate_hz=args.rate, n_c=args.n_c,
@@ -561,8 +571,7 @@ def main():
     print(f"sequencer: {n_ops} tenant ops in {dt:.2f}s "
           f"({n_ops/dt:.0f} ops/s on {args.device}), "
           f"{len(results)} stacked batches dispatched, structurally validated; "
-          f"kernel launches limb_matmul={K1.launches} "
-          f"mont_fold={K2.launches}")
+          f"kernel launches {_launched(before)}")
 
 
 if __name__ == "__main__":
