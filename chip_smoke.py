@@ -159,25 +159,50 @@ Phases, each printing one JSON line:
    against the data sheet's rates) and replayed under torch.profiler: K1/K2
    nodes against the fold profile, every output exact, the predicted device
    time beside the launch floor and the profiled device time, the graph
-   pool's bytes and the card.
+   pool's bytes and the card;
+12. lm — the LM serving path (``serve_lm``, ``repro_torch.models``; plain
+   PyTorch ops, no Pallas kernel on this path, so K1/K2/K3 must stay at 0
+   launches): (a) each of the ten archs at its smoke config in float32,
+   drawn on the CPU from the seed and copied to the card, served on both
+   with equal greedy tokens, and its train-mode, prefill and first decode
+   logits on the card within 1e-4 of the CPU's; (b) for the five archs of
+   ``tests/test_models_smoke.py``'s decode test, the decode step's logits
+   on the card within its 2e-2 of a full-context forward; (c) olmo_1b at
+   its full published width in bf16 (batch 2, prompt 16, 8 tokens): its
+   parameter bytes, prefill ms, decode ms per token and tokens/s (CUDA
+   events, median of five warm runs after a cold one), peak allocated and
+   reserved memory, one more warm run under torch.profiler (kernels,
+   device busy ms, idle share, the five largest kernels), and its
+   decode-against-full-context and
+   bf16-against-float32 errors (the same weights in float32 on the card),
+   each as max |err| over the reference's largest |logit| within the 5e-2
+   ``PERF.md`` states; (d) granite_moe_3b_a800m, hymba_1_5b, mamba2_370m
+   and whisper_large_v3 at full width (tokens in vocabulary, logits
+   finite, times and memory), and internvl2_1b's refusal: its 256-patch
+   vision prefix overflows the prompt-plus-decode cache, where the JAX
+   ``serve_lm`` raises.
 
-Eight short calls run the first phase and stop: ``--k3`` adds K3's checks
+Nine short calls run the first phase and stop: ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
 and K3's checks (for a change to the fold, which K3 shares), ``--variants``
 the variants phase, ``--validator`` the validator phase, ``--online`` the online phase, with the CPU replays of
 its two traces as the reference, ``--cluster`` the cluster phase, with
 the CPU replay of the paper trace as the reference, ``--examples`` the
-examples phase and ``--dryrun`` the dry run's four cells.
+examples phase, ``--dryrun`` the dry run's four cells and ``--lm`` the LM
+phase.
 
-Every comparison is exact (tolerance 0).  Any failure raises, so the exit
-code is not 0 and the last line is missing.  The last two lines are the
-kernel table (``{"kernels": [...]}``) and ``{"ok": true, "device": ...}``.
+Every comparison of the crypto phases is exact (tolerance 0); the LM
+phase's floating-point comparisons use the tolerances stated under 12.
+Any failure raises, so the exit code is not 0 and the last line is
+missing.  The last two lines are the kernel table
+(``{"kernels": [...]}``) and ``{"ok": true, "device": ...}``.
 Nothing of JAX or of the JAX package ``repro`` is imported.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -206,6 +231,7 @@ from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E40
 from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,  # noqa: E402
                                         RectangularScheduler, TenantRequest)
 from repro_torch.cluster import ClusterConfig, ClusterServer    # noqa: E402
+from repro_torch.configs import ARCHS as LM_ARCHS, get_config, smoke_config  # noqa: E402
 from repro_torch.core.scheduler.program import E2EProgram, GraphProbe, capture_pool, host_operand  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
@@ -220,7 +246,9 @@ from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
 from repro_torch.launch import dryrun as DRY                   # noqa: E402
 from repro_torch.launch import graph_cost as GC                 # noqa: E402
 from repro_torch.launch.dryrun import oracle_mod_np             # noqa: E402
-from repro_torch.launch.serve import serve_crypto, serve_crypto_cluster, serve_crypto_online  # noqa: E402
+from repro_torch.launch.serve import lm_prompts, serve_crypto, serve_crypto_cluster, serve_crypto_online, serve_lm  # noqa: E402
+from repro_torch.models import model as LM                      # noqa: E402
+from repro_torch.models import steps as LMST                    # noqa: E402
 from repro_torch.core.scheduler.coscheduler import check_launch_census, expected_kernel_calls  # noqa: E402
 from repro_torch.device import partition_devices                # noqa: E402
 from repro_torch.examples import EXAMPLES                       # noqa: E402
@@ -285,6 +313,29 @@ CROSSOVER_DS = (256, 512, 1024, 2048, 4096)
 # defaults (fp32_mantissa, eager, traced).
 DRYRUN_CELLS = [(arch, shape) for arch in ("aegis_dilithium", "aegis_bn254")
                 for shape in ("serve_256", "serve_8k")]
+# The LM phase (repro_torch.models; no Pallas kernel lies on this path).
+# (a) every arch at its smoke config, float32, on the card against the CPU,
+# same weights: greedy tokens equal, logits within the CPU tests' port-
+# against-JAX tolerance; (b) decode against full context on the card for the
+# archs of tests/test_models_smoke.py:48-73 at its tolerance; (c) olmo_1b at
+# its full published width in bf16 (serve_lm's default), batch 2, prompt 16,
+# 8 tokens: times (median of LM_RUNS warm runs), memory, and its errors
+# against a full-context forward and against the same weights in float32,
+# each max |err| over the reference's largest |logit| (the bound PERF.md
+# stated before the first run); (d) the other families at full width that
+# fit one card and that the JAX serve_lm serves; internvl2_1b's vision
+# prefix (256) plus the prompt overflows the 24-position cache and must
+# raise, as the JAX serve_lm does.
+LM_SMOKE_TOL = 1e-4
+LM_DECODE_ARCHS = ("olmo_1b", "mamba2_370m", "hymba_1_5b", "whisper_large_v3",
+                   "granite_moe_3b_a800m")
+LM_DECODE_TOL = 2e-2
+LM_FULL = "olmo_1b"
+LM_BF16_REL_TOL = 5e-2
+LM_FULL_OTHERS = ("granite_moe_3b_a800m", "hymba_1_5b", "mamba2_370m",
+                  "whisper_large_v3")
+LM_REFUSED = "internvl2_1b"
+LM_RUNS = 5
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -2391,6 +2442,211 @@ def phase_dryrun(dev, env: dict) -> dict:
     return out
 
 
+def _lm_close(got, want, tol: float, what: str) -> float:
+    """max |got - want|, every element within tol + tol·|want|."""
+    err = (got.float().cpu() - want.float().cpu()).abs()
+    bound = tol + tol * want.float().cpu().abs()
+    check(bool((err <= bound).all()),
+          f"lm {what}: max |err| {float(err.max())}, tolerance {tol}")
+    return float(err.max())
+
+
+def _lm_rel(got, want, what: str) -> dict:
+    """max |got - want| over max |want|, against LM_BF16_REL_TOL, and the
+    share of positions whose greedy token agrees."""
+    got, want = got.float(), want.float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    check(rel <= LM_BF16_REL_TOL,
+          f"lm {what}: relative error {rel} above {LM_BF16_REL_TOL}")
+    return {"max_abs_err": float((got - want).abs().max()),
+            "max_abs_ref": float(want.abs().max()), "rel_err": rel,
+            "tolerance": LM_BF16_REL_TOL,
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+
+
+def _lm_step(cfg, model, prompts, tok=None, prompt_len=16):
+    """Train-mode logits, prefill logits and the first decode step's logits
+    of one batch, and the token decoded: the prefill's greedy token unless
+    ``tok`` gives it."""
+    with torch.no_grad():
+        train, _, _ = model(prompts, mode="train")
+    pre, cache = LMST.make_prefill(cfg, max_len=prompt_len + 8)(model, prompts)
+    if tok is None:
+        tok = torch.argmax(pre[:, -1], dim=-1).to(torch.int32)[:, None]
+    _, dec, _ = LMST.make_decode_step(cfg)(model, cache, tok, prompt_len)
+    return train, pre, dec, tok
+
+
+def _lm_smoke(dev, arch: str) -> dict:
+    """(a) and, for LM_DECODE_ARCHS, (b): one smoke arch drawn on the CPU
+    from SEED and copied to the card."""
+    cfg = smoke_config(arch)
+    cpu_model = LM.LMModel(cfg, device="cpu", seed=SEED)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    tokens = {where: serve_lm(cfg, model=m, device=m.device)[0]
+              for where, m in (("cpu", cpu_model), ("card", card_model))}
+    check(np.array_equal(tokens["cpu"], tokens["card"]),
+          f"lm {arch}: greedy tokens {tokens['card'].tolist()} on the card, "
+          f"{tokens['cpu'].tolist()} on the CPU")
+    runs = {where: _lm_step(cfg, m, lm_prompts(cfg, seed=SEED + 1,
+                                               device=m.device))
+            for where, m in (("cpu", cpu_model), ("card", card_model))}
+    out = {"tokens": tokens["card"].tolist(), "max_abs_err": {
+        name: _lm_close(runs["card"][i], runs["cpu"][i], LM_SMOKE_TOL,
+                        f"{arch} {name} logits, card against CPU")
+        for i, name in enumerate(("train", "prefill", "decode"))}}
+    if arch in LM_DECODE_ARCHS:
+        prompts = lm_prompts(cfg, seed=SEED + 1, device=dev)
+        _, _, dec, tok = runs["card"]
+        full = dict(prompts, tokens=torch.cat([prompts["tokens"], tok], 1))
+        with torch.no_grad():
+            logits_full, _, _ = card_model(full, mode="train")
+        out["decode_vs_full_max_abs_err"] = _lm_close(
+            dec[:, -1], logits_full[:, -1], LM_DECODE_TOL,
+            f"{arch} decode against full context")
+    return out
+
+
+def _lm_free(dev):
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
+def _lm_serve(dev, arch: str, runs: int) -> tuple:
+    """One full-width arch drawn on the card from SEED and served by
+    ``serve_lm`` once cold and ``runs`` times warm on the same model: its
+    parameter bytes, the memory before it, the warm runs' median times and
+    the peak memory; the tokens in vocabulary and the prefill's logits
+    finite.  Returns (record, model, prompts)."""
+    cfg = get_config(arch)
+    _lm_free(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = LM.LMModel(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    cold = serve_lm(cfg, model=model, device=dev)
+    warm = [serve_lm(cfg, model=model, device=dev) for _ in range(runs)]
+    toks = cold[0]
+    check(toks.shape == (2, 8) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size,
+          f"lm {arch}: tokens {toks.tolist()} outside [0, {cfg.vocab_size})")
+    prompts = lm_prompts(cfg, seed=SEED, device=dev)
+    logits, _ = LMST.make_prefill(cfg, max_len=24)(model, prompts)
+    check(bool(torch.isfinite(logits).all()), f"lm {arch}: prefill logits "
+          f"not finite")
+    med = {key: statistics.median(w[2][key] for w in warm)
+           for key in ("prefill_ms", "decode_ms_per_token")}
+    wall = statistics.median(w[1] for w in warm)
+    profiled = _lm_profile(dev, cfg, model, wall)
+    rec = {"arch": arch, "dtype": cfg.dtype, "batch": 2, "prompt_len": 16,
+           "decode_steps": 8,
+           "param_count": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "allocated_before_bytes": before, "init_s": init_s,
+           "cold_wall_s": cold[1], "cold_prefill_ms": cold[2]["prefill_ms"],
+           "warm_runs": runs, "wall_s": wall, **med,
+           "tokens_per_s": 2 * 8 / wall,
+           "decode_tokens_per_s": 2 * 1e3 / med["decode_ms_per_token"],
+           "peak_allocated_bytes": max(w[2]["peak_allocated_bytes"]
+                                       for w in [cold, *warm]),
+           "peak_reserved_bytes": max(w[2]["peak_reserved_bytes"]
+                                      for w in [cold, *warm]),
+           "tokens": toks.tolist(),
+           "tokens_stable": all(np.array_equal(w[0], toks) for w in warm),
+           "profiled": profiled}
+    return rec, model, prompts
+
+
+def _lm_profile(dev, cfg, model, wall: float) -> dict:
+    """One more warm ``serve_lm`` run under torch.profiler (after one as its
+    warm-up): its device kernels, their busy time against the unprofiled
+    warm runs' median wall time, and the five that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    serve_lm(cfg, model=model, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve_lm(cfg, model=model, device=dev)
+        torch.cuda.synchronize(dev)
+    events = list(_kernel_events(prof))
+    busy_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:5]
+    return {"kernels": sum(ev.count for ev in events),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (wall * 1e3) if busy_ms
+            else None,
+            "top_device": [[ev.key[:80], ev.count,
+                            ev.self_device_time_total / 1e3] for ev in top]}
+
+
+def _lm_olmo_errors(dev, model, prompts) -> dict:
+    """(c)'s two errors: the first decode step against a full-context
+    forward (bf16 on the card), and bf16 against the same weights in
+    float32 (train-mode logits over the prompt, prefill and first decode
+    step), with whether the two prefills' greedy tokens agree."""
+    cfg = model.cfg
+    train, pre, dec, tok = _lm_step(cfg, model, prompts)
+    full = dict(prompts, tokens=torch.cat([prompts["tokens"], tok], 1))
+    with torch.no_grad():
+        logits_full, _, _ = model(full, mode="train")
+    out = {"decode_vs_full": _lm_rel(dec[:, -1], logits_full[:, -1],
+                                     f"{cfg.name} decode against full "
+                                     f"context")}
+    f32 = LM.LMModel(dataclasses.replace(cfg, dtype="float32"), device=dev,
+                     seed=SEED)
+    f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    # the float32 model decodes the bf16 run's token, so that both steps
+    # read the same input
+    train32, pre32, dec32, _ = _lm_step(f32.cfg, f32, prompts, tok)
+    out["bf16_vs_fp32"] = {
+        name: _lm_rel(a, b, f"{cfg.name} bf16 {name} against float32")
+        for name, a, b in (("train", train, train32), ("prefill", pre, pre32),
+                           ("decode", dec, dec32))}
+    out["bf16_vs_fp32"]["first_token_equal"] = torch.equal(
+        tok[:, 0], torch.argmax(pre32[:, -1], dim=-1).to(torch.int32))
+    return out
+
+
+def phase_lm(dev, env: dict) -> dict:
+    """The LM serving path (``repro_torch.launch.serve.serve_lm``) on the
+    card: (a)–(d) of ``LM_*`` above, with the K1/K2/K3 counters set to 0
+    just before and read just after (the path launches none of them)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = {"phase": "lm", "nvidia_smi": env["nvidia_smi"],
+           "device": torch.cuda.get_device_name(dev),
+           "smoke_tolerance": LM_SMOKE_TOL, "decode_tolerance": LM_DECODE_TOL,
+           "smoke": {arch: _lm_smoke(dev, arch) for arch in sorted(LM_ARCHS)}}
+    rec, model, prompts = _lm_serve(dev, LM_FULL, LM_RUNS)
+    out["full"] = {LM_FULL: dict(rec, **_lm_olmo_errors(dev, model, prompts))}
+    del model, prompts
+    for arch in LM_FULL_OTHERS:
+        rec, model, prompts = _lm_serve(dev, arch, 3)
+        out["full"][arch] = rec
+        del model, prompts
+    _lm_free(dev)
+    try:
+        serve_lm(get_config(LM_REFUSED), device=dev)
+    except ValueError as e:
+        out["refused"] = {LM_REFUSED: str(e)}
+    else:
+        raise AssertionError(f"lm {LM_REFUSED}: the vision prefix fit the "
+                             f"cache, where the JAX serve_lm raises")
+    _lm_free(dev)
+    launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+                "fused_ntt_tile": K3.launches}
+    check(not any(launches.values()), f"lm: kernel launches {launches}")
+    out["kernel_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -2442,6 +2698,10 @@ def main():
         # a short call: the build and the four crypto cells of the dry run
         phase_dryrun(dev, env)
         return
+    if sys.argv[1:] == ["--lm"]:
+        # a short call: the build and the LM phase
+        phase_lm(dev, env)
+        return
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
     phase_variants(dev, env)
@@ -2458,6 +2718,7 @@ def main():
     phase_cluster(dev, env, paper_rows)
     phase_examples(dev, env)
     phase_dryrun(dev, env)
+    phase_lm(dev, env)
 
     rows = []
     for name, replaces, timed, launches, err in (

@@ -6,6 +6,9 @@ kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use
 and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
-CPU tensor each kernel wrapper runs the kernel's plain PyTorch version.  All
-arithmetic is exact: results match the JAX package bit for bit.
+CPU tensor each kernel wrapper runs the kernel's plain PyTorch version.  The
+crypto arithmetic is exact: results match the JAX package bit for bit.  The
+LM serving path (``configs``, ``models``, ``launch.serve.serve_lm``) is
+floating point and plain PyTorch ops; it matches the JAX package within the
+tolerances its tests state.
 """

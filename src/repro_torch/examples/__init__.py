@@ -11,8 +11,8 @@ a failure.
     PYTHONPATH=src python -m repro_torch.examples.online_serving
     PYTHONPATH=src python -m repro_torch.examples.cluster_serving [--hosts 3]
 
-``examples/train_lm.py`` has no counterpart yet: the LM substrate is not
-ported.
+``examples/train_lm.py`` has no counterpart yet: the LM's training half is
+not ported.
 """
 import argparse
 

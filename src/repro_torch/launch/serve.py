@@ -1,4 +1,4 @@
-"""Serving launcher of the port — two modes:
+"""Serving launcher of the port — three modes:
 
 * ``--mode crypto``: offline replay of the Aegis multi-tenant sequencer:
   Poisson ingress → Tier-1 rectangular batching → Tier-2 co-scheduled
@@ -11,13 +11,17 @@
   tenant-hash ingress, gossip (``--gossip-period-ms``), host-failure
   injection and recovery (``--fault-plan``, ``--shed-watermark``), the
   two-phase drain barrier, and with ``--device-parallel`` each host pinned
-  to its own slice of the devices.
+  to its own slice of the devices;
+* ``--mode lm``: batched LM serving (prefill + greedy decode) for any arch
+  of :mod:`repro_torch.configs` (``--arch``, default ``olmo_1b`` at its
+  full published width; ``--smoke`` for the reduced config) on
+  :mod:`repro_torch.models`, with random weights drawn from ``--seed``.
 
 On CUDA every staging-pass GEMM is the ``limb_matmul`` kernel and every fold
 the ``mont_fold`` kernel, and each launch group replays one captured CUDA
 graph of its class's whole e2e (BN254's reduction included); in cluster
-mode every host captures its own programs.  The JAX package's LM mode is
-not ported yet.
+mode every host captures its own programs.  The LM mode runs PyTorch ops
+only: the JAX package's LM reaches no Pallas kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto-online \
@@ -27,22 +31,119 @@ not ported yet.
         --fault-plan kill@0.5:h1,recover@0.9:h1
     PYTHONPATH=src python -m repro_torch.launch.serve --mode crypto-online \
         --device cuda --hosts 4 --duration 0.25 --rate 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        [--arch olmo_1b] [--smoke] [--decode-steps 8] --device cuda|cpu
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
+
+from repro_torch.configs import get_config, smoke_config
 
 from repro_torch.core import validator as V
 from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,
                                         RectangularScheduler)
 from repro_torch.core.scheduler.coscheduler import (SliceCoScheduler,
                                                     check_launch_census)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2
+from repro_torch.models import model as M
+from repro_torch.models import steps as ST
 from repro_torch.serve.client import attach_payloads
+
+
+def lm_prompts(cfg, *, batch=2, prompt_len=16, seed=0, device=None) -> dict:
+    """``serve_lm``'s batch: (B, prompt_len) int32 tokens and, for a frontend
+    config, (B, max(frontend_len, 4), d_model) float32 embeddings, drawn from
+    ``np.random.default_rng(seed)`` in the JAX package's order."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    prompts = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+        dtype=torch.int32, device=dev)}
+    if cfg.frontend:
+        prompts["embeds"] = torch.as_tensor(rng.normal(
+            size=(batch, max(cfg.frontend_len, 4), cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    return prompts
+
+
+def serve_lm(cfg, *, batch=2, prompt_len=16, decode_steps=8, seed=0,
+             device=None, model=None):
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
+    greedily, ``decode_steps`` tokens in all (the first from the prefill's
+    logits), as the JAX package's ``serve_lm``: the prompts (and a frontend
+    config's embeddings) come from ``np.random.default_rng(seed)`` in the
+    same order, and the cache holds ``prompt_len + decode_steps`` positions.
+
+    ``model=None`` draws an :class:`~repro_torch.models.model.LMModel` from
+    ``seed`` on the device (torch's generator: the JAX package's
+    distributions, not its values); a model converted from the JAX
+    package's parameters (``models.convert.params_from_jax``) gives the JAX
+    run's tokens.  Runs on ``cuda`` unless ``device="cpu"``; a given model
+    must be of ``cfg`` and on that device.  Decode writes from position
+    ``prompt_len``, after a VLM's vision prefix as in the JAX package, and a
+    prefix plus prompt longer than the cache raises a ValueError.
+
+    Returns ``(tokens, seconds, stats)``: the (B, decode_steps) int32 tokens
+    as numpy, the wall seconds of prefill and decode (the JAX package's two
+    results), and ``stats`` with ``prefill_ms``, ``decode_ms_per_token``
+    (CUDA events on the card, the host clock on the CPU), peak allocated and
+    reserved bytes on the card (None on the CPU) and the device."""
+    dev = resolve_device(device)
+    if model is None:
+        model = M.LMModel(cfg, device=dev, seed=seed)
+    elif model.cfg != cfg or model.device != dev:
+        raise ValueError(f"model of {model.cfg.name} on {model.device}, "
+                         f"asked for {cfg.name} on {dev}")
+    prompts = lm_prompts(cfg, batch=batch, prompt_len=prompt_len, seed=seed,
+                         device=dev)
+    prefill = ST.make_prefill(cfg, max_len=prompt_len + decode_steps)
+    decode = ST.make_decode_step(cfg)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    marks = []
+
+    def mark():
+        if on_card:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        else:
+            marks.append(time.perf_counter())
+
+    t0 = time.time()
+    mark()
+    logits, cache = prefill(model, prompts)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    mark()
+    out = [tok]
+    for i in range(decode_steps - 1):
+        tok, _, cache = decode(model, cache, tok, prompt_len + i)
+        out.append(tok)
+    mark()
+    toks = torch.cat(out, dim=1).cpu().numpy()
+    dt = time.time() - t0
+    if on_card:
+        torch.cuda.synchronize(dev)
+        spans = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    else:
+        spans = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    stats = {"prefill_ms": spans[0],
+             "decode_ms_per_token": (spans[1] / (decode_steps - 1)
+                                     if decode_steps > 1 else None),
+             "peak_allocated_bytes": (torch.cuda.max_memory_allocated(dev)
+                                      if on_card else None),
+             "peak_reserved_bytes": (torch.cuda.max_memory_reserved(dev)
+                                     if on_card else None),
+             "device": str(dev)}
+    return toks, dt, stats
 
 
 def serve_crypto(*, duration_s=0.05, rate_hz=2048, n_c=8, d_uniform=None,
@@ -395,10 +496,25 @@ def _print_online(args, load, snap, dt, before):
         print(f"trace → {args.trace_out} (open in ui.perfetto.dev)")
 
 
+def _lm_stats(cfg, stats) -> str:
+    decode = stats["decode_ms_per_token"]
+    line = (f"{cfg.name} ({cfg.dtype}) on {stats['device']}: prefill "
+            f"{stats['prefill_ms']:.3f} ms, decode "
+            + ("-" if decode is None else f"{decode:.3f}") + " ms/token")
+    if stats["peak_allocated_bytes"] is None:
+        return line + ", peak memory not measured (CPU)"
+    return line + (f", peak memory {stats['peak_allocated_bytes'] / 2**20:.1f}"
+                   f" MiB allocated, {stats['peak_reserved_bytes'] / 2**20:.1f}"
+                   f" MiB reserved")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["crypto", "crypto-online"],
+    ap.add_argument("--mode", choices=["crypto", "crypto-online", "lm"],
                     default="crypto")
+    ap.add_argument("--arch", default="olmo_1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--duration", type=float, default=0.05)
     ap.add_argument("--rate", type=float, default=2048)
     ap.add_argument("--n-c", type=int, default=8)
@@ -510,6 +626,13 @@ def main(argv=None):
                      f", e.g. 'dilithium=lazy' (got "
                      f"{args.reduction_by_workload!r})")
 
+    if args.mode == "lm":
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        toks, dt, stats = serve_lm(cfg, decode_steps=args.decode_steps,
+                                   seed=args.seed, device=args.device)
+        print(f"decoded {toks.shape} tokens in {dt:.2f}s")
+        print(_lm_stats(cfg, stats))
+        return
     before = (K1.launches, K2.launches)
     if args.mode == "crypto-online" and args.hosts > 1:
         load, snap, dt = serve_crypto_cluster(
