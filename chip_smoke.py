@@ -180,19 +180,51 @@ Phases, each printing one JSON line:
    and whisper_large_v3 at full width (tokens in vocabulary, logits
    finite, times and memory), and internvl2_1b's refusal: its 256-patch
    vision prefix overflows the prompt-plus-decode cache, where the JAX
-   ``serve_lm`` raises.
+   ``serve_lm`` raises;
+13. train — the LM training path (``repro_torch.launch.train``,
+   ``repro_torch.examples.train_lm``: AdamW, the train step with remat and
+   gradient accumulation, the data stream, checkpoints, the fault-tolerant
+   loop; plain PyTorch ops, so K1/K2/K3 must stay at 0 launches): (a) each
+   of the ten archs at its smoke config in float32, drawn on the CPU from
+   the seed and copied to the card, one train step on both from the same
+   state and ``batch_at(0)`` at a learning rate of 1e-3 (so the update
+   clears the bound): loss, grad_norm and every updated parameter within
+   1e-4, and the moments ``m`` and ``v`` (the clipped gradient and its
+   square) leaf by leaf within 1e-4 of that leaf's largest magnitude; and
+   olmo_1b's ``grad_accum = 4`` against 1 within 2e-3, the moments at 2e-3
+   of each leaf's scale;
+   (b) olmo_1b at its full published width in bf16 through
+   ``launch.train.build``'s defaults (sequence 128, global batch 8, remat
+   "dots"): parameter and optimizer bytes, 12 steps (step ms by CUDA
+   events, median of the last 10; tokens/s; every loss finite), peak
+   allocated and reserved memory, one more step under torch.profiler
+   (kernels, device busy ms and the share under ``aten::mm``/``bmm``/
+   ``addmm``, idle share, the five largest kernels), then the first
+   step's loss, grad_norm and gradients against the same weights
+   in float32 (within 5e-2 relative; every leaf's gradient at cosine ≥
+   0.99); no checkpoint at this width (~14 GB a save); (c) the
+   ``train_lm`` demo, 100 steps, clean and with ``--inject-fault``
+   (checkpoints under ``build/``): one restart, falling losses, the final
+   parameters within 1e-5 of the clean run's, the watchdog's median step
+   and stragglers; (d) ``python -m
+   repro_torch.launch.train --arch olmo_1b --smoke --steps 20`` as a
+   subprocess, its summary line and exit code 0.
 
-Nine short calls run the first phase and stop: ``--k3`` adds K3's checks
+Ten short calls run the first phase and stop: ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
 and K3's checks (for a change to the fold, which K3 shares), ``--variants``
 the variants phase, ``--validator`` the validator phase, ``--online`` the online phase, with the CPU replays of
 its two traces as the reference, ``--cluster`` the cluster phase, with
 the CPU replay of the paper trace as the reference, ``--examples`` the
-examples phase, ``--dryrun`` the dry run's four cells and ``--lm`` the LM
-phase.
+examples phase, ``--dryrun`` the dry run's four cells, ``--lm`` the LM
+phase and ``--train`` the train phase.  ``--train --remat-ms`` is the
+train phase with a diagnostic that no other call runs: after (b)'s
+profiled step, three more steps each with remat off and under "nothing"
+(step ms, median).
 
-Every comparison of the crypto phases is exact (tolerance 0); the LM
-phase's floating-point comparisons use the tolerances stated under 12.
+Every comparison of the crypto phases is exact (tolerance 0); the LM and
+train phases' floating-point comparisons use the tolerances stated under 12
+and 13.
 Any failure raises, so the exit code is not 0 and the last line is
 missing.  The last two lines are the kernel table
 (``{"kernels": [...]}``) and ``{"ok": true, "device": ...}``.
@@ -205,8 +237,11 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -250,6 +285,11 @@ from repro_torch.launch.serve import lm_prompts, serve_crypto, serve_crypto_clus
 from repro_torch.models import model as LM                      # noqa: E402
 from repro_torch.models import steps as LMST                    # noqa: E402
 from repro_torch.core.scheduler.coscheduler import check_launch_census, expected_kernel_calls  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMStream, batch_to_device  # noqa: E402
+from repro_torch.examples import train_lm as TRAIN_LM            # noqa: E402
+from repro_torch.launch import train as TRAIN                    # noqa: E402
+from repro_torch.optim import (AdamWConfig, global_norm,          # noqa: E402
+                               init_opt_state)
 from repro_torch.device import partition_devices                # noqa: E402
 from repro_torch.examples import EXAMPLES                       # noqa: E402
 from repro_torch.obs import validate_chrome_trace, validate_openmetrics  # noqa: E402
@@ -336,6 +376,41 @@ LM_FULL_OTHERS = ("granite_moe_3b_a800m", "hymba_1_5b", "mamba2_370m",
                   "whisper_large_v3")
 LM_REFUSED = "internvl2_1b"
 LM_RUNS = 5
+# The train phase (repro_torch.optim, data, checkpoint, runtime,
+# launch.train, examples.train_lm; no Pallas kernel on this path): (a) each
+# arch at its smoke config in float32, one make_train_step step from the
+# same weights, state and batch_at(0) on the CPU and on the card under
+# TRAIN_SMOKE_OPT, loss, grad_norm and every updated parameter within the
+# LM phase's 1e-4, m and v leaf by leaf within 1e-4 + 1e-4 x the leaf's
+# largest magnitude, and olmo_1b's grad_accum = 4 against 1 on the card
+# within the JAX test's 2e-3 (tests/test_training_substrate.py:149), m and v
+# at that leaf-scaled 2e-3; (b) olmo_1b at its full published width in bf16
+# through launch.train.build's defaults (sequence 128, global batch 8, lr
+# 3e-4, seed 0, remat "dots"), TRAIN_STEPS steps (median of the last
+# TRAIN_TIMED), with --remat-ms TRAIN_REMAT_STEPS more under each other
+# remat setting (median), then its first step's loss, grad_norm and gradients
+# against the same weights in float32: loss and grad_norm within 5e-2
+# relative, each leaf's gradient at cosine >= 0.99; (c) the demo of
+# examples.train_lm, TRAIN_DEMO_STEPS steps clean and with the injected
+# fault, final parameters within JAX's 1e-5 (tests/test_training_substrate
+# .py:96-100); (d) the launcher's CLI as a subprocess.
+TRAIN_SMOKE_DATA = dict(seq_len=64, global_batch=8)
+# 1e-3 from step 1 (no warmup): the default schedule's 6e-6 at step 1 moves
+# no parameter by as much as the 1e-4 bound
+TRAIN_SMOKE_OPT = AdamWConfig(lr=1e-3, warmup_steps=1)
+TRAIN_ACCUM_TOL = 2e-3
+TRAIN_FULL = "olmo_1b"
+TRAIN_STEPS = 12
+TRAIN_TIMED = 10
+TRAIN_REMAT_STEPS = 3
+# the ATen ops whose device time is the profiled step's GEMM share
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+TRAIN_BF16_REL_TOL = 5e-2
+TRAIN_GRAD_COS = 0.99
+TRAIN_LOOP_TOL = 1e-5
+TRAIN_DEMO_STEPS = 100
+TRAIN_CLI_STEPS = 20
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -2647,6 +2722,314 @@ def phase_lm(dev, env: dict) -> dict:
     return out
 
 
+def _train_stream(cfg, **data) -> SyntheticLMStream:
+    return SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seed=SEED,
+        frontend_len=cfg.frontend_len if cfg.frontend else 0,
+        d_model=cfg.d_model, **data))
+
+
+def _leaves_close(got: dict, want: dict, tol: float, what: str) -> float:
+    """Each tensor of ``got`` against ``want``'s of the same name, every
+    element within tol·max|want| + tol·|want|; returns the largest error
+    over that leaf's largest magnitude."""
+    worst = 0.0
+    for name, w in want.items():
+        w = w.float().cpu()
+        scale = float(w.abs().max())
+        err = (got[name].float().cpu() - w).abs()
+        check(bool((err <= tol * scale + tol * w.abs()).all()),
+              f"train {what} {name}: max |err| {float(err.max())}, "
+              f"tolerance {tol} of the leaf's largest magnitude {scale}")
+        worst = max(worst, float(err.max()) / scale if scale else 0.0)
+    return worst
+
+
+def _train_smoke(dev, arch: str) -> dict:
+    """(a): one smoke arch drawn on the CPU from SEED, copied to the card,
+    one train step on each from the same state and batch."""
+    cfg = smoke_config(arch)
+    cpu_model, cpu_opt = LMST.init_train_state(cfg, seed=SEED, device="cpu")
+    models = {"cpu": (cpu_model, cpu_opt)}
+    card = copy.deepcopy(cpu_model).to(dev)
+    models["card"] = (card, init_opt_state(card))
+    if arch == TRAIN_FULL:
+        card4 = copy.deepcopy(cpu_model).to(dev)
+        models["card_accum4"] = (card4, init_opt_state(card4))
+    batch = _train_stream(cfg, **TRAIN_SMOKE_DATA).batch_at(0)
+    metrics = {}
+    for where, (model, opt) in models.items():
+        c = dataclasses.replace(cfg, grad_accum=4) if where == "card_accum4" \
+            else cfg
+        _, _, metrics[where] = LMST.make_train_step(c, TRAIN_SMOKE_OPT)(
+            model, opt, batch_to_device(batch, model.device))
+    out = {"loss": float(metrics["card"]["loss"])}
+    for key in ("loss", "grad_norm"):
+        out[f"{key}_max_abs_err"] = _lm_close(
+            metrics["card"][key], metrics["cpu"][key], LM_SMOKE_TOL,
+            f"train {arch} {key}, card against CPU")
+    want = cpu_model.state_dict()
+    out["params_max_abs_err"] = max(
+        _lm_close(p, want[n], LM_SMOKE_TOL,
+                  f"train {arch} parameter {n}, card against CPU")
+        for n, p in card.state_dict().items())
+    for key in ("m", "v"):
+        out[f"{key}_max_rel_err"] = _leaves_close(
+            models["card"][1][key], cpu_opt[key], LM_SMOKE_TOL,
+            f"{arch} {key}, card against CPU,")
+    if arch == TRAIN_FULL:
+        got, ref = models["card_accum4"][0].state_dict(), card.state_dict()
+        out["accum4"] = {
+            "loss_abs_err": _lm_close(
+                metrics["card_accum4"]["loss"], metrics["card"]["loss"],
+                TRAIN_ACCUM_TOL, f"train {arch} grad_accum 4 loss"),
+            "params_max_abs_err": max(
+                _lm_close(p, ref[n], TRAIN_ACCUM_TOL,
+                          f"train {arch} grad_accum 4 parameter {n}")
+                for n, p in got.items()),
+            "tolerance": TRAIN_ACCUM_TOL}
+        for key in ("m", "v"):
+            out["accum4"][f"{key}_max_rel_err"] = _leaves_close(
+                models["card_accum4"][1][key], models["card"][1][key],
+                TRAIN_ACCUM_TOL, f"{arch} grad_accum 4 {key}")
+    return out
+
+
+def _train_profile(dev, model, opt, step, stream, step_ms: float) -> dict:
+    """One more step under torch.profiler: its device kernels, their busy
+    time against the unprofiled steps' median, the five that take the
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = batch_to_device(next(stream), dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, opt, batch)
+        torch.cuda.synchronize(dev)
+    events = list(_kernel_events(prof))
+    busy_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:5]
+    gemm_ms = sum(ev.device_time_total for ev in prof.key_averages()
+                  if ev.key in GEMM_OPS) / 1e3
+    return {"kernels": sum(ev.count for ev in events),
+            "device_busy_ms": busy_ms, "gemm_device_ms": gemm_ms,
+            "device_idle_share": 1 - busy_ms / step_ms if busy_ms else None,
+            "top_device": [[ev.key[:80], ev.count,
+                            ev.self_device_time_total / 1e3] for ev in top]}
+
+
+def _train_remat_ms(dev, model, opt, step, stream) -> dict:
+    """Step ms (CUDA events, median of TRAIN_REMAT_STEPS after one warm-up)
+    with remat off and under "nothing", on the same model and state."""
+    cfg, out = model.cfg, {}
+    for label, kw in (("off", dict(remat=False)),
+                      ("nothing", dict(remat_policy="nothing"))):
+        model.cfg = dataclasses.replace(cfg, **kw)
+        times = []
+        for _ in range(TRAIN_REMAT_STEPS + 1):
+            batch = batch_to_device(next(stream), dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(model, opt, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[label] = statistics.median(times[1:])
+    model.cfg = cfg
+    return out
+
+
+def _train_grads(cfg, model, batch) -> tuple:
+    """(loss, grad_norm, {name: gradient}) of one batch, as the train step
+    takes them (remat on)."""
+    loss, _, grads = LMST._grads(cfg, model, dict(model.named_parameters()),
+                                 batch)
+    return float(loss), float(global_norm(grads.values())), grads
+
+
+def _train_full(dev, remat_ms: bool) -> dict:
+    """(b): olmo_1b at full width in bf16 through ``launch.train.build``:
+    TRAIN_STEPS steps timed by CUDA events, memory, one profiled step (and
+    with ``remat_ms`` the other remat settings' step ms); then its first
+    step's loss and gradients against float32."""
+    cfg = get_config(TRAIN_FULL)
+    _lm_free(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, opt, step, stream = TRAIN.build(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    rec = {"arch": TRAIN_FULL, "dtype": cfg.dtype, "remat": cfg.remat,
+           "remat_policy": cfg.remat_policy,
+           "seq_len": stream.cfg.seq_len, "global_batch": stream.cfg.global_batch,
+           "param_count": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "opt_bytes": sum(t.numel() * t.element_size()
+                            for key in ("m", "v") for t in opt[key].values()),
+           "allocated_before_bytes": before, "init_s": init_s}
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        batch = batch_to_device(next(stream), dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        _, opt, metrics = step(model, opt, batch)
+        end.record()
+        loss = float(metrics["loss"])
+        end.synchronize()
+        steps.append({"ms": start.elapsed_time(end),
+                      "host_ms": (time.perf_counter() - h0) * 1e3,
+                      "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                      "lr": float(metrics["lr"])})
+    losses = [s["loss"] for s in steps]
+    check(all(np.isfinite(losses)), f"train {TRAIN_FULL}: losses {losses}")
+    step_ms = statistics.median(s["ms"] for s in steps[-TRAIN_TIMED:])
+    tokens = stream.cfg.seq_len * stream.cfg.global_batch
+    rec.update(steps=steps, step_ms=step_ms,
+               step_host_ms=statistics.median(
+                   s["host_ms"] for s in steps[-TRAIN_TIMED:]),
+               first_step_ms=steps[0]["ms"],
+               tokens_per_step=tokens, tokens_per_s=tokens / step_ms * 1e3,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+               peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+               profiled=_train_profile(dev, model, opt, step, stream,
+                                       step_ms))
+    if remat_ms:
+        rec["remat_step_ms"] = dict(
+            _train_remat_ms(dev, model, opt, step, stream), dots=step_ms)
+    del model, opt, step
+    _lm_free(dev)
+
+    # the same weights (build draws them from seed 0) and batch_at(0), bf16
+    # and float32, on the card
+    batch = batch_to_device(stream.batch_at(0), dev)
+    bf16 = LM.LMModel(cfg, device=dev, seed=SEED)
+    loss_b, norm_b, grads_b = _train_grads(cfg, bf16, batch)
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = LM.LMModel(f32_cfg, device=dev, seed=SEED)
+    f32.load_state_dict({k: v.float() for k, v in bf16.state_dict().items()})
+    del bf16
+    _lm_free(dev)
+    loss_f, norm_f, grads_f = _train_grads(f32_cfg, f32, batch)
+    del f32
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+                grads_b[n].float().flatten(), grads_f[n].flatten(), dim=0))
+           for n in grads_f}
+    worst = min(cos, key=cos.get)
+    rel = {"loss": abs(loss_b - loss_f) / abs(loss_f),
+           "grad_norm": abs(norm_b - norm_f) / abs(norm_f)}
+    for key, err in rel.items():
+        check(err <= TRAIN_BF16_REL_TOL, f"train {TRAIN_FULL}: bf16 {key} "
+              f"{err} relative to float32, above {TRAIN_BF16_REL_TOL}")
+    check(cos[worst] >= TRAIN_GRAD_COS, f"train {TRAIN_FULL}: bf16 gradient "
+          f"of {worst} at cosine {cos[worst]} to float32's")
+    rec["bf16_vs_fp32"] = {
+        "loss": [loss_b, loss_f], "grad_norm": [norm_b, norm_f],
+        "rel_err": rel, "tolerance": TRAIN_BF16_REL_TOL,
+        "grad_cosine_min": [worst, cos[worst]],
+        "grad_cosine_median": statistics.median(cos.values()),
+        "cosine_bound": TRAIN_GRAD_COS,
+        "first_step_loss_of_run": steps[0]["loss"]}
+    del grads_b, grads_f
+    _lm_free(dev)
+    return rec
+
+
+def _train_demo(argv: list) -> tuple:
+    """One ``examples.train_lm`` run on the card: (loop, printed lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        loop = TRAIN_LM.main(["--steps", str(TRAIN_DEMO_STEPS), *argv],
+                             ckpt_root=str(TRAIN_DIR))
+    return loop, out.getvalue().splitlines()
+
+
+def _train_loop() -> dict:
+    """(c): the demo clean and with the injected fault; the final parameters
+    of the two within TRAIN_LOOP_TOL."""
+    runs = {label: _train_demo(argv) for label, argv in
+            (("clean", []), ("faulty", ["--inject-fault"]))}
+    clean, faulty = runs["clean"][0], runs["faulty"][0]
+    want = clean.model.state_dict()
+    out = {"params_max_abs_err": max(
+        _lm_close(p, want[n], TRAIN_LOOP_TOL,
+                  f"train demo: faulty run's {n} against the clean run's")
+        for n, p in faulty.model.state_dict().items()),
+        "tolerance": TRAIN_LOOP_TOL}
+    for label, (loop, lines) in runs.items():
+        losses = [m["loss"] for m in loop.metrics_log]
+        k = max(len(losses) // 10, 1)
+        out[label] = {"restarts": loop.restarts,
+                      "first10": sum(losses[:k]) / k,
+                      "last10": sum(losses[-k:]) / k,
+                      "median_step_ms": loop.watchdog.median * 1e3,
+                      "stragglers": loop.watchdog.flagged, "printed": lines}
+        check(out[label]["last10"] < out[label]["first10"],
+              f"train demo {label}: loss did not decrease "
+              f"({out[label]['first10']} → {out[label]['last10']})")
+    check(out["clean"]["restarts"] == 0 and out["faulty"]["restarts"] == 1,
+          f"train demo: restarts {out['clean']['restarts']} clean, "
+          f"{out['faulty']['restarts']} faulty")
+    return out
+
+
+def _train_cli() -> dict:
+    """(d): ``python -m repro_torch.launch.train --arch olmo_1b --smoke`` as
+    a subprocess on the card."""
+    ckpt = TRAIN_DIR / "cli"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_FULL, "--smoke", "--steps", str(TRAIN_CLI_STEPS),
+           "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ,
+                                                PYTHONPATH=str(root / "src")))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines
+          and lines[-1].startswith(f"steps={TRAIN_CLI_STEPS} "),
+          f"train CLI: exit {proc.returncode}, {proc.stdout[-500:]!r} "
+          f"{proc.stderr[-2000:]!r}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"cmd": " ".join(cmd[1:]), "returncode": proc.returncode,
+            "summary": lines[-1], "wall_s": wall}
+
+
+def phase_train(dev, env: dict, remat_ms: bool = False) -> dict:
+    """The LM training path (``repro_torch.launch.train``,
+    ``repro_torch.examples.train_lm``) on the card: (a)–(d) of ``TRAIN_*``
+    above, with the K1/K2/K3 counters set to 0 just before and read just
+    after (the path launches none of them).  ``remat_ms`` adds (b)'s
+    diagnostic steps under the other remat settings."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = {"phase": "train", "nvidia_smi": env["nvidia_smi"],
+           "device": torch.cuda.get_device_name(dev),
+           "smoke_tolerance": LM_SMOKE_TOL,
+           "smoke": {arch: _train_smoke(dev, arch)
+                     for arch in sorted(LM_ARCHS)}}
+    _lm_free(dev)
+    out["full"] = _train_full(dev, remat_ms)
+    out["loop"] = _train_loop()
+    _lm_free(dev)
+    out["cli"] = _train_cli()
+    launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+                "fused_ntt_tile": K3.launches}
+    check(not any(launches.values()), f"train: kernel launches {launches}")
+    out["kernel_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -2702,6 +3085,11 @@ def main():
         # a short call: the build and the LM phase
         phase_lm(dev, env)
         return
+    if sys.argv[1:] in (["--train"], ["--train", "--remat-ms"]):
+        # a short call: the build and the train phase (with the remat
+        # diagnostic)
+        phase_train(dev, env, remat_ms="--remat-ms" in sys.argv)
+        return
     kern = phase_kernels(dev, env["device"])
     phase_engines(dev)
     phase_variants(dev, env)
@@ -2719,6 +3107,7 @@ def main():
     phase_examples(dev, env)
     phase_dryrun(dev, env)
     phase_lm(dev, env)
+    phase_train(dev, env)
 
     rows = []
     for name, replaces, timed, launches, err in (

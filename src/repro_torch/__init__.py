@@ -8,7 +8,8 @@ and bound with ``ctypes`` (:mod:`repro_torch.kernels.build`).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a
 CPU tensor each kernel wrapper runs the kernel's plain PyTorch version.  The
 crypto arithmetic is exact: results match the JAX package bit for bit.  The
-LM serving path (``configs``, ``models``, ``launch.serve.serve_lm``) is
-floating point and plain PyTorch ops; it matches the JAX package within the
-tolerances its tests state.
+LM serving path (``configs``, ``models``, ``launch.serve.serve_lm``) and its
+training path (``optim``, ``data``, ``checkpoint``, ``runtime``,
+``launch.train``) are floating point and plain PyTorch ops; they match the
+JAX package within the tolerances their tests state.
 """

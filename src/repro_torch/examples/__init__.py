@@ -10,9 +10,10 @@ a failure.
     PYTHONPATH=src python -m repro_torch.examples.multi_tenant_sequencer
     PYTHONPATH=src python -m repro_torch.examples.online_serving
     PYTHONPATH=src python -m repro_torch.examples.cluster_serving [--hosts 3]
+    PYTHONPATH=src python -m repro_torch.examples.train_lm [--inject-fault]
 
-``examples/train_lm.py`` has no counterpart yet: the LM's training half is
-not ported.
+``EXAMPLES`` lists the crypto examples; ``train_lm``'s ``main`` returns the
+finished training loop.
 """
 import argparse
 

@@ -1,11 +1,16 @@
-"""Carry the JAX package's LM weights and caches across to the port.
+"""Carry the JAX package's LM weights, optimizer state and caches across to
+the port, and the port's parameters and moments back.
 
 The JAX package keeps parameters as a tree of dicts whose per-layer leaves
 are stacked on a leading ``n_layers`` axis (``jax.vmap`` over the layers'
 keys); the port keeps one module per layer.  A leaf ``layers/attn/wq`` of
 shape (L, d, q) becomes the parameters ``layers.<i>.attn.wq`` of shape
 (d, q).  numpy has no bf16, so a bf16 leaf arrives as float32 and is cast
-back to the parameter's dtype (bf16 → f32 → bf16 is lossless).
+back to the parameter's dtype (bf16 → f32 → bf16 is lossless).  The AdamW
+moments ``m`` and ``v`` are trees of the parameters' shape and cross the
+same way (:func:`opt_state_from_jax`); :func:`state_to_jax` stacks the
+port's per-layer tensors back into the JAX tree for a leaf-by-leaf
+comparison.
 """
 from __future__ import annotations
 
@@ -41,6 +46,56 @@ def state_from_jax(tree) -> dict[str, np.ndarray]:
         else:
             out[name] = arr
     return out
+
+
+def opt_state_from_jax(cfg, opt_state, device=None) -> dict:
+    """The JAX package's AdamW state ``{"m": tree, "v": tree, "step"}`` as
+    the port's: float32 moments under the port's parameter names and a 0-d
+    int32 step, on ``device``.  Raises where a stacked leaf's layer count is
+    not the config's."""
+    dev = resolve_device(device)
+    layers = {"layers": cfg.n_layers, "enc_layers": cfg.encoder_layers}
+    out = {}
+    for key in ("m", "v"):
+        for name, leaf in _flatten(opt_state[key]):
+            top = name.partition(".")[0]
+            if top in layers and np.shape(leaf)[0] != layers[top]:
+                raise ValueError(f"{key}/{name}: {np.shape(leaf)[0]} layers, "
+                                 f"{cfg.name} has {layers[top]}")
+        out[key] = {name: torch.from_numpy(arr).to(dev)
+                    for name, arr in state_from_jax(opt_state[key]).items()}
+    out["step"] = torch.tensor(int(np.asarray(opt_state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
+
+
+def state_to_jax(state) -> dict:
+    """The port's parameters (an :class:`LMModel`, or a dict name → tensor
+    such as a state dict or AdamW's ``m``) as the JAX package's nested tree
+    of float32 numpy arrays, per-layer tensors stacked on a leading layer
+    axis in layer order."""
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    tree: dict = {}
+    stacked: dict = {}
+    for name, value in state.items():
+        arr = (value.detach().float().cpu().numpy()
+               if isinstance(value, torch.Tensor)
+               else np.asarray(value, np.float32))
+        parts = name.split(".")
+        if parts[0] in _STACKED:
+            stacked.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = arr
+            continue
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    for path, by_layer in stacked.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.stack([by_layer[i] for i in sorted(by_layer)])
+    return tree
 
 
 def params_from_jax(cfg, tree, device=None, dtype=None) -> LMModel:

@@ -13,11 +13,23 @@ families — the counterpart of ``repro.models.model``.
 Modes: "train" (causal, full seq), "prefill" (fills the cache, returns the
 last position's logits), "decode" (single token step against the cache).
 ``LMModel`` runs on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Remat (``cfg.remat``), the counterpart of ``jax.checkpoint``: while autograd
+records, each decoder layer of the train mode is recomputed in the backward
+pass under ``cfg.remat_policy`` ("dots": the GEMMs' outputs are saved, as
+``dots_saveable`` saves them; "nothing": the whole layer is recomputed), and
+each encoder layer is recomputed whole.  Without grad (serving, evaluation)
+nothing is wrapped.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs import torch_dtype
 from repro_torch.device import resolve_device
@@ -95,8 +107,13 @@ class LMModel(nn.Module):
         b, t, _ = embeds.shape
         x = embeds.to(torch_dtype(cfg)) + self.enc_pos_embed[None, :t]
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        remat = cfg.remat and torch.is_grad_enabled()
         for lp in self.enc_layers:
-            x = _encoder_layer(cfg, lp, x, positions=positions)
+            if remat:
+                x = checkpoint(_encoder_layer, cfg, lp, x, positions=positions,
+                               use_reentrant=False)
+            else:
+                x = _encoder_layer(cfg, lp, x, positions=positions)
         return L.apply_norm(cfg, self, x, "enc_ln_final")
 
     def _embed_tokens(self, tokens, positions):
@@ -140,10 +157,18 @@ class LMModel(nn.Module):
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if mode in ("train", "prefill") and cache is None:
+            remat = (cfg.remat and mode == "train"
+                     and torch.is_grad_enabled())
             for lp in self.layers:
-                x, aux, _ = _decoder_layer(cfg, lp, x, aux,
-                                           positions=positions, mode=mode,
-                                           enc_out=enc_out)
+                if remat:
+                    x, aux = checkpoint(
+                        _decoder_layer_train, cfg, lp, x, aux, positions,
+                        enc_out, use_reentrant=False,
+                        context_fn=_remat_context(cfg.remat_policy))
+                else:
+                    x, aux, _ = _decoder_layer(cfg, lp, x, aux,
+                                               positions=positions, mode=mode,
+                                               enc_out=enc_out)
             x = L.apply_norm(cfg, self, x, "ln_final")
             return self._logits(x), aux, None
 
@@ -200,6 +225,37 @@ def fill_cross_cache(cfg, model, cache, enc_out):
         cl["cross_k"] = k.to(cl["cross_k"].dtype)
         cl["cross_v"] = v.to(cl["cross_v"].dtype)
     return cache
+
+
+# --- remat -------------------------------------------------------------------------
+
+# the ops whose outputs "dots" keeps (dot_general's counterparts); the
+# policy sees torch.matmul and einsum already decomposed into mm / bmm
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.matmul.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``cfg.remat_policy``: "dots"
+    saves the GEMMs' outputs and recomputes the rest (``dots_saveable``);
+    "nothing" recomputes everything (``nothing_saveable``)."""
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    if policy == "nothing":
+        return noop_context_fn
+    raise ValueError(f"remat_policy {policy!r}: expected 'dots' or 'nothing'")
+
+
+def _decoder_layer_train(cfg, lp, x, aux, positions, enc_out):
+    x, aux, _ = _decoder_layer(cfg, lp, x, aux, positions=positions,
+                               mode="train", enc_out=enc_out)
+    return x, aux
 
 
 # --- layer bodies -----------------------------------------------------------------

@@ -110,7 +110,10 @@ def ssd_forward(cfg, params, x, *, state=None):
         li = cum[:, :, :, None, :] - cum[:, :, None, :, :]
         tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                     device=x.device))
-        l_mat = torch.where(tri[None, None, :, :, None], torch.exp(li), 0.0)
+        # the exponent is masked, not its value: exp of the upper triangle
+        # (li ≥ 0) can overflow, and 0·inf in the backward pass is NaN
+        l_mat = torch.exp(torch.where(tri[None, None, :, :, None], li,
+                                      float("-inf")))
         y_intra = torch.einsum("bgtuh,bguhp->bgthp", scores * l_mat, xdt_c)
 
         # end-of-chunk states: Σ_u exp(cum_T - cum_u) B_u ⊗ Δx_u

@@ -1,10 +1,11 @@
-"""Serve and evaluation step factories over the port's model zoo — the
-serving half of ``repro.models.steps``.
+"""Train, serve and evaluation step factories over the port's model zoo —
+the counterpart of ``repro.models.steps``.
 
+``make_train_step`` → one AdamW step (gradient accumulation included);
 ``make_prefill / make_decode_step`` → the serving path (KV/SSM caches);
 ``make_eval_step`` → the forward-only loss.  Each step takes the
 :class:`~repro_torch.models.model.LMModel` where the JAX step takes its
-parameter tree, and runs without autograd.
+parameter tree; the serving and evaluation steps run without autograd.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import model as M
+from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -69,3 +71,60 @@ def make_decode_step(cfg):
         return next_tok[:, None], logits, cache
 
     return decode_step
+
+
+def _grads(cfg, model, params: dict, batch: dict):
+    """(loss, metrics, {name: gradient}) of one batch, the gradients in the
+    parameters' dtypes (zeros for a parameter the loss does not reach, as
+    JAX's grad gives)."""
+    loss, metrics = loss_fn(cfg, model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                materialize_grads=True)
+    return loss.detach(), metrics, dict(zip(params, grads))
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig()):
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)``: the parameters and the optimizer state are updated in place
+    (the counterpart of ``donate_argnums``); metrics ``ce``, ``aux``,
+    ``loss``, ``grad_norm`` and ``lr`` are 0-d tensors on the model's device,
+    so the step never waits on the host.
+
+    With ``cfg.grad_accum`` > 1 the batch is split into that many
+    microbatches, and each one's gradients are added into float32 buffers as
+    ``g / accum`` (not into ``.grad`` in the parameters' dtype), its loss as
+    ``loss / accum``; the other metrics are the microbatches' means."""
+    accum = max(int(getattr(cfg, "grad_accum", 1)), 1)
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        if accum == 1:
+            loss, metrics, grads = _grads(cfg, model, params, batch)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                     for k, v in batch.items()}
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in params.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            seq = []
+            for i in range(accum):
+                l_i, m_i, g_i = _grads(cfg, model, params,
+                                       {k: v[i] for k, v in micro.items()})
+                for n, g in g_i.items():
+                    grads[n] = grads[n] + g.float() / accum
+                loss = loss + l_i / accum
+                seq.append(m_i)
+            metrics = {k: torch.stack([m[k].detach() for m in seq]).mean()
+                       for k in seq[0]}
+        _, opt_state, stats = adamw_update(opt_cfg, params, grads, opt_state)
+        return model, opt_state, dict(metrics, loss=loss, **stats)
+
+    return train_step
+
+
+def init_train_state(cfg, *, seed: int = 0, device=None):
+    """(LMModel drawn from ``seed`` on ``device``, its AdamW state)."""
+    model = M.LMModel(cfg, device=device, seed=seed)
+    return model, init_opt_state(model)

@@ -180,6 +180,17 @@ def test_no_cpu_fallback_without_cuda():
         serve_crypto(duration_s=0.001)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DilithiumEngine(64)
+    # the training entry points
+    from repro_torch.configs import smoke_config
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import build
+    from repro_torch.models.steps import init_train_state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(smoke_config("olmo_1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(smoke_config("olmo_1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"])
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
