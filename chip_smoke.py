@@ -159,7 +159,14 @@ Phases, each printing one JSON line:
    against the data sheet's rates) and replayed under torch.profiler: K1/K2
    nodes against the fold profile, every output exact, the predicted device
    time beside the launch floor and the profiled device time, the graph
-   pool's bytes and the card;
+   pool's bytes and the card; then the LM cells of the dry run
+   (``run_cell`` on the production meshes, planned on the host: a fake
+   process group, DTensors under FakeTensorMode, the sharded census):
+   olmo_1b ``train_4k`` and ``decode_32k`` and mamba2_370m ``long_500k``
+   on 16 × 16 and 2 × 16 × 16, each ``ok`` with its bytes per device,
+   roofline terms, collective bytes by kind and plan seconds (K1/K2/K3 at
+   0), llama3_405b ``long_500k`` ``skipped``; and the census on this torch
+   seeing one local product for a sharded one (``census_local``);
 12. lm — the LM serving path (``serve_lm``, ``repro_torch.models``; plain
    PyTorch ops, no Pallas kernel on this path, so K1/K2/K3 must stay at 0
    launches): (a) each of the ten archs at its smoke config in float32,
@@ -208,23 +215,42 @@ Phases, each printing one JSON line:
    parameters within 1e-5 of the clean run's, the watchdog's median step
    and stragglers; (d) ``python -m
    repro_torch.launch.train --arch olmo_1b --smoke --steps 20`` as a
-   subprocess, its summary line and exit code 0.
+   subprocess, its summary line and exit code 0;
+14. dist — the mesh runtime and the W8A8 path, single controller on the
+   card (no Pallas kernel on these paths: K1/K2/K3 stay at 0): (a) GPipe
+   (``repro_torch.runtime.pipeline``), olmo_1b's 16 layers at full width
+   in bf16 as 4 stages of 4 on a ``pod`` axis of 4 positions on the card,
+   8 microbatches of (2, 128) hidden states: equal bit for bit to the same
+   stages run serially per microbatch, within 5e-2 (of the largest |value|)
+   of one pass of all of them at once; pipeline and serial ms (CUDA
+   events, median of 5), stage calls, kernels and idle share; (b) the int8
+   error-feedback sync (``repro_torch.runtime.compression``) of olmo_1b's
+   gradient tree (113 bf16 leaves, 1,176,764,416 elements, seeded) over
+   the same axis: every synced leaf and the new error state within the
+   leaf's scale (max |g| / 127), the smoke tree's sync on the card equal
+   to the CPU's bit for bit, ms per sync, peak memory, bytes sent as int8
+   against an int32 psum's; (c) ``QuantizedLinear`` (``repro_torch.quant``)
+   on olmo_1b's ``mlp/wi_gate`` (2048 × 8192) with 8 × 128 tokens: the
+   card's int32 path (``torch._int_mm``, padded) equal bit for bit to the
+   CPU's plain integer path, within 0.05 of the bf16 product, µs against
+   ``torch.matmul`` in bf16; an exact-window case (K = 2048) against the
+   int64 product.
 
-Ten short calls run the first phase and stop: ``--k3`` adds K3's checks
+Eleven short calls run the first phase and stop: ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
 and K3's checks (for a change to the fold, which K3 shares), ``--variants``
 the variants phase, ``--validator`` the validator phase, ``--online`` the online phase, with the CPU replays of
 its two traces as the reference, ``--cluster`` the cluster phase, with
 the CPU replay of the paper trace as the reference, ``--examples`` the
 examples phase, ``--dryrun`` the dry run's four cells, ``--lm`` the LM
-phase and ``--train`` the train phase.  ``--train --remat-ms`` is the
+phase and ``--train`` the train phase, ``--dist`` the dist phase.  ``--train --remat-ms`` is the
 train phase with a diagnostic that no other call runs: after (b)'s
 profiled step, three more steps each with remat off and under "nothing"
 (step ms, median).
 
 Every comparison of the crypto phases is exact (tolerance 0); the LM and
 train phases' floating-point comparisons use the tolerances stated under 12
-and 13.
+and 13, the dist phase's those under 14.
 Any failure raises, so the exit code is not 0 and the last line is
 missing.  The last two lines are the kernel table
 (``{"kernels": [...]}``) and ``{"ok": true, "device": ...}``.
@@ -266,7 +292,7 @@ from repro_torch.core.scheduler.coscheduler import SliceCoScheduler  # noqa: E40
 from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,  # noqa: E402
                                         RectangularScheduler, TenantRequest)
 from repro_torch.cluster import ClusterConfig, ClusterServer    # noqa: E402
-from repro_torch.configs import ARCHS as LM_ARCHS, get_config, smoke_config  # noqa: E402
+from repro_torch.configs import ARCHS as LM_ARCHS, get_config, smoke_config, torch_dtype  # noqa: E402
 from repro_torch.core.scheduler.program import E2EProgram, GraphProbe, capture_pool, host_operand  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
@@ -280,6 +306,13 @@ from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
 from repro_torch.launch import dryrun as DRY                   # noqa: E402
 from repro_torch.launch import graph_cost as GC                 # noqa: E402
+from repro_torch.launch import mesh as MESH                     # noqa: E402
+from repro_torch.launch import specs as SPECS                   # noqa: E402
+from repro_torch.quant import QuantizedLinear, quantized_matmul  # noqa: E402
+from repro_torch.quant.aqt import exact_k_bound                  # noqa: E402
+from repro_torch.runtime import compressed_grad_sync, init_error_state  # noqa: E402
+from repro_torch.runtime.compression import wire_bytes          # noqa: E402
+from repro_torch.runtime.pipeline import bubble_fraction, pipeline_forward  # noqa: E402
 from repro_torch.launch.dryrun import oracle_mod_np             # noqa: E402
 from repro_torch.launch.serve import lm_prompts, serve_crypto, serve_crypto_cluster, serve_crypto_online, serve_lm  # noqa: E402
 from repro_torch.models import model as LM                      # noqa: E402
@@ -411,6 +444,25 @@ TRAIN_LOOP_TOL = 1e-5
 TRAIN_DEMO_STEPS = 100
 TRAIN_CLI_STEPS = 20
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+# The dist phase (repro_torch.runtime.pipeline, .compression, repro_torch.
+# quant; no Pallas kernel on these paths): (a) GPipe, olmo_1b's 16 layers as
+# DIST_STAGES stages on a "pod" axis of as many positions on the card,
+# DIST_MICRO microbatches of DIST_MB (batch, sequence) hidden states in
+# bf16, DIST_RUNS timed runs each of the pipeline and the serial run; (b)
+# the int8 error-feedback sync of olmo_1b's gradient tree over the same
+# axis, DIST_SYNC_RUNS timed syncs; (c) W8A8 on mlp/wi_gate with
+# DIST_AQT_TOKENS (batch, sequence) tokens.
+DIST_STAGES = 4
+DIST_MICRO = 8
+DIST_MB = (2, 128)
+DIST_RUNS = 5
+DIST_SYNC_RUNS = 3
+DIST_AQT_TOKENS = (8, 128)
+# The dry run's LM cells on both production meshes (ok), and the cell the
+# skip rule refuses.
+DRYRUN_LM_CELLS = [("olmo_1b", "train_4k"), ("olmo_1b", "decode_32k"),
+                   ("mamba2_370m", "long_500k")]
+DRYRUN_LM_SKIPPED = [("llama3_405b", "long_500k")]
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512
 # (tile 171, La = 3, five diagonals, ragged last passes), BN254 d = 64
@@ -2496,7 +2548,11 @@ def phase_dryrun(dev, env: dict) -> dict:
     torch.profiler); every output exact (each channel against (a @ W) mod
     m, BN254's digits against the plain ``rns_to_field`` on the CPU); the
     K1/K2 nodes equal to the cell's fold profile, and the counters to the
-    warm-up's calls plus the replays'."""
+    warm-up's calls plus the replays'.  Then the census check on this
+    torch (``census_local``) and the LM cells (``lm_cells``): DRYRUN_LM_CELLS
+    on both production meshes, each ``ok`` with collectives counted and
+    bytes per device, planned on the host with the counters at 0, and
+    DRYRUN_LM_SKIPPED ``skipped`` by JAX's rule."""
     out = {"phase": "dryrun", "nvidia_smi": env["nvidia_smi"], "cells": []}
     for arch, shape in DRYRUN_CELLS:
         _reset_counters()
@@ -2513,8 +2569,51 @@ def phase_dryrun(dev, env: dict) -> dict:
               f"{replays} replays")
         rec["launches"] = launches
         out["cells"].append(rec)
+    out["census_local"] = _census_sees_local_shards()
+    out["lm_cells"] = []
+    for (arch, shape), multi in [(c, m) for c in DRYRUN_LM_CELLS
+                                 + DRYRUN_LM_SKIPPED for m in (False, True)]:
+        _reset_counters()
+        rec = DRY.run_cell(arch, shape, multi_pod=multi)
+        want = "skipped" if (arch, shape) in DRYRUN_LM_SKIPPED else "ok"
+        check(rec["status"] == want and not any(_counts().values()),
+              f"dryrun {arch} {shape} {rec['mesh']}: status "
+              f"{rec['status']} ({rec.get('error') or rec.get('reason')}), "
+              f"launches {_counts()}")
+        if want == "ok":
+            check(rec["collectives_naive"]["count"] > 0
+                  and rec["bytes_per_device"] > 0
+                  and rec["roofline"]["n_chips"] == (512 if multi else 256),
+                  f"dryrun {arch} {shape} {rec['mesh']}: {rec['roofline']}")
+        rec.pop("trace", None)
+        out["lm_cells"].append(rec)
     emit(out)
     return out
+
+
+def _census_sees_local_shards() -> dict:
+    """The sharded census on this torch: x (8, 64) batch-sharded over
+    ``data`` times w (64, 64) column-sharded over ``model`` on a (4, 2)
+    mesh is one local (2, 64) × (64, 32) product, whatever DTensor runs on
+    the global shapes to learn the result's metadata."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.shardings import P
+    mesh = MESH.make_mesh((4, 2), ("data", "model"), ["cpu"])
+    with DRY.fake_world(mesh) as dmesh, FakeTensorMode():
+        placer = DRY._Placer(mesh, dmesh)
+        x = placer.tensor(torch.empty((8, 64), device="meta"),
+                          P("data", None))
+        w = placer.tensor(torch.empty((64, 64), device="meta"),
+                          P(None, "model"))
+        census = GC.ShardedOpCensus()
+        with census:
+            y = x @ w
+        shape = tuple(y.to_local().shape)
+    ops = [name for name, _ in census.ops]
+    check(ops == ["aten.mm.default"] and shape == (2, 32),
+          f"dryrun census: ops {ops}, local result {shape}")
+    return {"ops": ops, "local_result": list(shape),
+            "cost": census.ops[0][1]}
 
 
 def _lm_close(got, want, tol: float, what: str) -> float:
@@ -3030,6 +3129,263 @@ def phase_train(dev, env: dict, remat_ms: bool = False) -> dict:
     return out
 
 
+# --- dist: GPipe, the int8 gradient sync, W8A8 --------------------------------
+
+
+def _counts() -> dict:
+    return {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+            "fused_ntt_tile": K3.launches}
+
+
+def _profiled(fn, dev, wall_ms: float) -> dict:
+    """One call of ``fn`` under torch.profiler (after one as its warm-up):
+    its device kernels, their busy time against ``wall_ms`` (an unprofiled
+    call's median) and the device's idle share over it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    events = list(_kernel_events(prof))
+    busy_ms = sum(ev.self_device_time_total for ev in events) / 1e3
+    return {"kernels": sum(ev.count for ev in events),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None}
+
+
+def _timed_ms(fn, dev, runs: int) -> float:
+    """Median of ``runs`` calls of ``fn`` between CUDA events, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _dist_gpipe(dev) -> dict:
+    """(a) olmo_1b's 16 decoder layers as DIST_STAGES stages on a ``pod``
+    axis of as many positions, all on the card: DIST_MICRO microbatches of
+    (2, 128) hidden states through ``pipeline_forward``, equal bit for bit
+    to the same stages applied serially per microbatch, within
+    LM_BF16_REL_TOL of one pass of all the microbatches at once; the
+    pipeline's and the serial run's times (CUDA events, median), stage
+    calls, kernels and idle share."""
+    cfg = get_config(LM_FULL)
+    model = LM.LMModel(cfg, device=dev, seed=SEED)
+    per = cfg.n_layers // DIST_STAGES
+    stages = [model.layers[i * per:(i + 1) * per] for i in range(DIST_STAGES)]
+    mesh = MESH.make_mesh((DIST_STAGES,), ("pod",), [dev])
+    b, s = DIST_MB
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = torch.randn((DIST_MICRO, b, s, cfg.d_model), generator=gen,
+                     device=dev).to(torch_dtype(cfg))
+    calls = [0]
+
+    def stage_fn(layers, x):
+        calls[0] += 1
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in layers:
+            x, aux, _ = LM._decoder_layer(cfg, lp, x, aux,
+                                          positions=positions, mode="train")
+        return x
+
+    def pipeline():
+        return pipeline_forward(stage_fn, stages, xs, mesh=mesh, axis="pod")
+
+    def serial():
+        outs = []
+        for j in range(DIST_MICRO):
+            h = xs[j]
+            for st in stages:
+                h = stage_fn(st, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        calls[0] = 0
+        out = pipeline()
+        pipe_calls = calls[0]
+        calls[0] = 0
+        ref = serial()
+        serial_calls = calls[0]
+        check(torch.equal(out, ref), "dist gpipe: the pipeline differs from "
+              "the serial per-microbatch run")
+        whole = xs.reshape(DIST_MICRO * b, s, cfg.d_model)
+        positions_all = torch.arange(s, device=dev)[None].expand(
+            DIST_MICRO * b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for lp in model.layers:
+            whole, aux, _ = LM._decoder_layer(cfg, lp, whole, aux,
+                                              positions=positions_all,
+                                              mode="train")
+        once = _lm_rel(out.reshape(whole.shape), whole,
+                       "dist gpipe against one pass")
+        pipe_ms = _timed_ms(pipeline, dev, DIST_RUNS)
+        serial_ms = _timed_ms(serial, dev, DIST_RUNS)
+        rec = {"stages": DIST_STAGES, "layers_per_stage": per,
+               "microbatches": DIST_MICRO, "microbatch": [b, s],
+               "d_model": cfg.d_model, "dtype": cfg.dtype,
+               "stage_calls": pipe_calls, "serial_stage_calls": serial_calls,
+               "ticks": DIST_MICRO + DIST_STAGES - 1,
+               "bubble_fraction": bubble_fraction(DIST_STAGES, DIST_MICRO),
+               "bit_equal_serial": True, "vs_one_pass": once,
+               "pipeline_ms": pipe_ms, "serial_ms": serial_ms,
+               "pipeline_over_serial": pipe_ms / serial_ms,
+               "predicted_ratio": pipe_calls / serial_calls,
+               "pipeline_profiled": _profiled(pipeline, dev, pipe_ms),
+               "serial_profiled": _profiled(serial, dev, serial_ms)}
+    del model, stages, xs, out, ref, whole
+    _lm_free(dev)
+    return rec
+
+
+def _grad_tree(cfg, dev, dtype=None) -> dict:
+    """A seeded normal gradient per parameter of ``cfg``'s model (names and
+    shapes from the meta model), drawn on ``dev`` in ``dtype`` (the
+    config's by default)."""
+    shapes = {n: p.shape for n, p in SPECS.abstract_params(cfg)
+              .named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dt = dtype or torch_dtype(cfg)
+    return {n: torch.randn(shape, generator=gen, device=dev).to(dt)
+            for n, shape in shapes.items()}
+
+
+def _dist_compression(dev) -> dict:
+    """(b) ``compressed_grad_sync`` of olmo_1b's gradient tree (bf16,
+    seeded normal) over a ``pod`` axis of DIST_STAGES positions on the
+    card: every synced leaf within its scale (max |g| / 127) of the
+    gradient and the new error state within it; ms per sync (CUDA events,
+    median), peak memory, bytes sent as int8 against an int32 psum's; and
+    on the smoke tree the card equal to the CPU bit for bit."""
+    cfg = get_config(LM_FULL)
+    mesh = MESH.make_mesh((DIST_STAGES,), ("pod",), [dev])
+    smoke = smoke_config(LM_FULL)
+    g_cpu = _grad_tree(smoke, torch.device("cpu"), torch.float32)
+    cpu_mesh = MESH.make_mesh((DIST_STAGES,), ("pod",), ["cpu"])
+    want = compressed_grad_sync(g_cpu, init_error_state(g_cpu),
+                                mesh=cpu_mesh)
+    g_card = {n: g.to(dev) for n, g in g_cpu.items()}
+    got = compressed_grad_sync(g_card, init_error_state(g_card), mesh=mesh)
+    for w_tree, g_tree, what in ((want[0], got[0], "synced"),
+                                 (want[1], got[1], "error state")):
+        bad = [n for n in w_tree if not torch.equal(w_tree[n],
+                                                    g_tree[n].cpu())]
+        check(not bad, f"dist compression smoke: the card's {what} differs "
+              f"from the CPU's at {bad[:4]}")
+    _lm_free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    grads = _grad_tree(cfg, dev)
+    err = init_error_state(grads)
+    synced, new_err = compressed_grad_sync(grads, err, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    worst = {"synced_over_scale": 0.0, "error_over_scale": 0.0}
+    for n, g in grads.items():
+        scale = float(g.float().abs().max()) / 127.0
+        d = float((synced[n].float() - g.float()).abs().max())
+        e = float(new_err[n].abs().max())
+        check(d <= scale and e <= scale, f"dist compression {n}: synced "
+              f"off by {d}, error state {e}, scale {scale}")
+        worst["synced_over_scale"] = max(worst["synced_over_scale"],
+                                         d / scale)
+        worst["error_over_scale"] = max(worst["error_over_scale"], e / scale)
+    del synced, new_err
+    sync_ms = _timed_ms(lambda: compressed_grad_sync(grads, err, mesh=mesh),
+                        dev, DIST_SYNC_RUNS)
+    rec = {"positions": DIST_STAGES, "leaves": len(grads),
+           "elements": sum(g.numel() for g in grads.values()),
+           "grad_bytes": sum(g.numel() * g.element_size()
+                             for g in grads.values()),
+           "error_state_bytes": sum(e.numel() * 4 for e in err.values()),
+           "smoke_card_equal_cpu": True, **worst,
+           "sync_ms": sync_ms, "allocated_before_bytes": before,
+           "peak_allocated_bytes": peak,
+           "wire_bytes": wire_bytes(grads, DIST_STAGES)}
+    del grads, err
+    _lm_free(dev)
+    return rec
+
+
+def _dist_aqt(dev) -> dict:
+    """(c) ``QuantizedLinear`` on olmo_1b's ``mlp/wi_gate`` shape with
+    DIST_AQT_TOKENS tokens: the card's ``int32_native`` output (the
+    product by ``torch._int_mm``) equal bit for bit to the CPU's plain
+    integer path on the same inputs and within 0.05 of the bf16 product;
+    its µs against ``torch.matmul`` in bf16; and an exact-window case (K =
+    2048 < ``exact_k_bound``, inputs on the int8 grid) equal to the int64
+    product over 127²."""
+    cfg = get_config(LM_FULL)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    w = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen) * 0.02).to(
+        torch.bfloat16)
+    x = torch.randn((DIST_AQT_TOKENS[0], DIST_AQT_TOKENS[1], cfg.d_model),
+                    generator=gen).to(torch.bfloat16)
+    layer = QuantizedLinear(w.to(dev))
+    out = layer(x.to(dev))
+    want = QuantizedLinear(w)(x)
+    check(torch.equal(out.cpu(), want), "dist aqt: the card's int32 path "
+          "differs from the CPU's")
+    ref = x.to(dev) @ w.to(dev)
+    rel = float((out.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    check(rel <= 0.05, f"dist aqt: {rel} of the bf16 product")
+    xd, wd = x.to(dev), w.to(dev)
+    times = median_ms_turns({"aqt": lambda: layer(xd),
+                             "bf16_matmul": lambda: xd @ wd}, dev, runs=20)
+    k = 2048
+    check(k < exact_k_bound("int32_native"), "dist aqt: K past the window")
+    rng = np.random.default_rng(SEED)
+    xi = rng.integers(-127, 128, (64, k))
+    wi = rng.integers(-127, 128, (k, 256))
+    xq = torch.as_tensor(xi, dtype=torch.float32, device=dev) / 127.0
+    got = quantized_matmul(xq, torch.as_tensor(wi, dtype=torch.int8,
+                                               device=dev),
+                           torch.full((1, 256), 1.0 / 127.0, device=dev))
+    exact = (xi @ wi).astype(np.float64) / (127.0 * 127.0)
+    window_err = float(np.abs(got.cpu().double().numpy() - exact).max()
+                       / np.abs(exact).max())
+    check(window_err <= 1e-6, f"dist aqt exact window: {window_err}")
+    return {"shape": [list(x.shape), list(w.shape)], "accum": "int32_native",
+            "card_equal_cpu": True, "rel_err_vs_bf16": rel,
+            "aqt_us": times["aqt"] * 1e3,
+            "bf16_matmul_us": times["bf16_matmul"] * 1e3,
+            "exact_window": {"k": k, "bound": exact_k_bound("int32_native"),
+                             "rel_err": window_err}}
+
+
+def phase_dist(dev, env: dict) -> dict:
+    """(a)–(c) of ``DIST_*`` above on the card, with the K1/K2/K3 counters
+    set to 0 just before and read just after (no Pallas kernel lies on
+    these paths, so all stay 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = {"phase": "dist", "nvidia_smi": env["nvidia_smi"],
+           "device": torch.cuda.get_device_name(dev),
+           "gpipe": _dist_gpipe(dev), "compression": _dist_compression(dev),
+           "aqt": _dist_aqt(dev)}
+    launches = _counts()
+    check(not any(launches.values()), f"dist: kernel launches {launches}")
+    out["kernel_launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device")
@@ -3078,12 +3434,17 @@ def main():
         phase_examples(dev, env)
         return
     if sys.argv[1:] == ["--dryrun"]:
-        # a short call: the build and the four crypto cells of the dry run
+        # a short call: the build, the four crypto cells of the dry run and
+        # its LM cells on the production meshes
         phase_dryrun(dev, env)
         return
     if sys.argv[1:] == ["--lm"]:
         # a short call: the build and the LM phase
         phase_lm(dev, env)
+        return
+    if sys.argv[1:] == ["--dist"]:
+        # a short call: the build and the dist phase
+        phase_dist(dev, env)
         return
     if sys.argv[1:] in (["--train"], ["--train", "--remat-ms"]):
         # a short call: the build and the train phase (with the remat
@@ -3108,6 +3469,7 @@ def main():
     phase_dryrun(dev, env)
     phase_lm(dev, env)
     phase_train(dev, env)
+    phase_dist(dev, env)
 
     rows = []
     for name, replaces, timed, launches, err in (

@@ -1,19 +1,21 @@
-"""Dry run of the crypto cells on one card: the port's counterpart of the
-crypto side of the JAX package's ``launch/dryrun.py`` (``_crypto_cell`` and
-the ``aegis_`` branch of ``run_cell``).
+"""Dry run of the JAX package's cells (``launch/dryrun.py``): the crypto
+cells run for real on one card, the LM cells are planned on the host over
+the production meshes.
 
-The JAX cell lowers the Aegis sequencer op for a pod slice's stacked batch
-from ``ShapeDtypeStruct``s and reads the compiled module's cost.  Here the
-cell runs for real, on seeded data: ``a`` uniform in [0, m), the twiddle
-planes random balanced int8 digits of the JAX shapes, whole on the one
-card (the JAX cell shards them over the 16×16 mesh's ``"model"`` axis, so
-a cell here reads 16× a mesh device's plane bytes for the same
-multiply-adds).  ``rows`` is ``rows_per_core`` × 1 device, as the JAX
-cell's are ``rows_per_core`` × its devices.  The step is JAX's, zones
-included (``wzone_*``, ``pzone_3limb`` / ``pzone_4limb``, ``channel_i`` per
-BN254 channel, ``vpu_montgomery`` around ``rns_to_field``), through
-``staged_transform_traced`` or ``staged_transform_scan`` on ``accum``,
-``reduction``, ``kappa``.
+**Crypto cells** (``aegis_*``: ``_crypto_cell`` and the ``aegis_`` branch
+of JAX's ``run_cell``).  The JAX cell lowers the Aegis sequencer op for a
+pod slice's stacked batch from ``ShapeDtypeStruct``s and reads the compiled
+module's cost.  Here the cell runs for real, on seeded data: ``a`` uniform
+in [0, m), the twiddle planes random balanced int8 digits of the JAX
+shapes, whole on the one card (the JAX cell shards them over the 16×16
+mesh's ``"model"`` axis, so a cell here reads 16× a mesh device's plane
+bytes for the same multiply-adds).  ``rows`` is ``rows_per_core`` × 1
+device, as the JAX cell's are ``rows_per_core`` × its devices: under
+``--mesh`` a crypto record names the mesh and keeps one device's rows.
+The step is JAX's, zones included (``wzone_*``, ``pzone_3limb`` /
+``pzone_4limb``, ``channel_i`` per BN254 channel, ``vpu_montgomery`` around
+``rns_to_field``), through ``staged_transform_traced`` or
+``staged_transform_scan`` on ``accum``, ``reduction``, ``kappa``.
 
 On CUDA the step is captured once as a graph (a ``GraphProbe`` whose warm-up
 runs under the cost model's op census), read node by node, validated
@@ -25,17 +27,42 @@ oracle (a @ W) mod m, BN254's field digits against the plain
 ``rns_to_field`` of the same channel outputs on the CPU; and the K1/K2
 nodes against the cell's fold profile.  A failed check raises.
 
+**LM cells** (JAX's ``_lm_cell`` and the LM branch of ``run_cell``): every
+(arch × shape × mesh) cell planned without allocation.  A ``"fake"``
+process group of the mesh's size (rank 0) and its ``DeviceMesh`` stand in
+for the 256 or 512 devices; the parameters, the AdamW state, the batch and
+the decode cache are DTensors under ``FakeTensorMode``, each laid out by
+:class:`~repro_torch.launch.shardings.ShardingRules` (JAX's specs), each
+shard holding a shape and no data.  The step (``make_train_step``,
+``make_prefill`` with ``max_len = seq_len + prefix``, or
+``make_decode_step`` at the last position of the cache) runs once under
+:class:`~repro_torch.launch.graph_cost.ShardedOpCensus`: every op on one
+device's shards, priced, and every collective DTensor issues, counted.  The
+plan allocates nothing and touches no device, by design, as JAX's dry run
+compiles for 512 forced host CPU devices: it runs on the host whatever
+``--device`` says, and is no fallback.  An op that DTensor cannot shard
+makes the cell ``status: "error"`` with the op named; it is never
+replicated to get past it.  Plain tensors the step makes (positions,
+masks) are replicated by construction and enter as such
+(``implicit_replication``).  No ``cuda_env`` bootstrap is needed: the world
+size is the fake group's.
+
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch aegis_dilithium,aegis_bn254 --shape serve_256,serve_8k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --shape serve_256 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo_1b \\
+        --shape train_4k --mesh both
 
 Records go to ``build/dryrun/`` (``--out`` elsewhere), one JSON file per
-cell.  The 512-device mesh (``--mesh``) and the LM cells are not ported.
+cell, named as JAX names them (``{arch}__{shape}__{single|multi}{_tag}``);
+a crypto cell run without ``--mesh`` is ``__1``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import time
@@ -45,6 +72,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.configs import ARCHS, SHAPES, get_config, shape_applicable
 from repro_torch.core import limb_gemm as G
 from repro_torch.core import limbs as L
 from repro_torch.core import rns as R
@@ -55,6 +83,11 @@ from repro_torch.core.field import DILITHIUM_Q
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.launch import graph_cost as GC
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch import shardings as SH
+from repro_torch.launch import specs as SP
+from repro_torch.models import model as M
+from repro_torch.models import steps as ST
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
@@ -281,10 +314,10 @@ def _replay_ms(probe, dev, runs: int = 5) -> float:
     return float(np.median(times))
 
 
-def run_cell(arch: str, shape: str, *, accum: str = "fp32_mantissa",
-             reduction: str = "eager", kappa: int | None = None,
-             scan_staging: bool = False, tag: str = "",
-             device=None) -> dict:
+def run_crypto_cell(arch: str, shape: str, *, accum: str = "fp32_mantissa",
+                    reduction: str = "eager", kappa: int | None = None,
+                    scan_staging: bool = False, tag: str = "",
+                    device=None) -> dict:
     """Run one crypto cell on ``device`` (CUDA unless ``"cpu"``) and return
     its record: the JAX record's keys where they mean something here
     (``arch``, ``shape``, ``status``, ``rows``, ``d``, ``workload``,
@@ -383,66 +416,398 @@ def run_cell(arch: str, shape: str, *, accum: str = "fp32_mantissa",
     return record
 
 
+# --- the LM cells ---------------------------------------------------------------
+
+# The card the LM plans are priced against: they run on no device.
+LM_NOTE = ("planned on the host over a fake process group: no allocation, "
+           "no device")
+GENERATED_CODE_NOTE = ("0: the port runs eager ATen ops, it generates no "
+                       "code")
+
+
+def lm_config(arch: str, overrides: dict | None = None):
+    """``get_config(arch)`` with ``overrides`` applied, keys starting with
+    ``_`` (``_moe_replicate``) left to the rules, as JAX's ``_lm_cell``."""
+    cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **{
+            k: v for k, v in overrides.items() if not k.startswith("_")})
+    return cfg
+
+
+@contextlib.contextmanager
+def fake_world(mesh: MESH.Mesh):
+    """A ``"fake"`` process group of the mesh's size, as rank 0, and its
+    ``DeviceMesh`` (device type ``cpu``: the plan touches no card).  The
+    group is torn down on exit, so no later cell sees it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; the "
+                           "dry run's LM cells make their own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield MESH.device_mesh(mesh, "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+class _Placer:
+    """Makes the cell's inputs DTensors of one mesh: each meta stand-in
+    becomes a DTensor of the same global shape whose local shard (a fake
+    tensor, under the cell's ``FakeTensorMode``) is rank 0's under the
+    spec; ``bytes`` sums the local shards."""
+
+    def __init__(self, mesh: MESH.Mesh, dmesh):
+        self.mesh, self.dmesh = mesh, dmesh
+        self.bytes = 0
+
+    def tensor(self, t, spec):
+        from torch.distributed.tensor import DTensor
+        local = torch.empty(SH.local_shape(t.shape, spec, self.mesh),
+                            dtype=t.dtype)
+        self.bytes += local.numel() * local.element_size()
+        return DTensor.from_local(local, self.dmesh,
+                                  SH.placements(spec, self.dmesh),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def tree(self, named: dict, specs: dict) -> dict:
+        return {k: self.tensor(v, specs[k]) for k, v in named.items()}
+
+    def module(self, model, specs: dict):
+        """The model's parameters swapped for DTensor parameters, in place."""
+        for prefix, mod in model.named_modules():
+            for name, p in list(mod._parameters.items()):
+                full = f"{prefix}.{name}" if prefix else name
+                mod._parameters[name] = torch.nn.Parameter(
+                    self.tensor(p, specs[full]), requires_grad=p.requires_grad)
+        return model
+
+    def cache(self, cache: list, specs: list) -> list:
+        return [self.tree(c, s) for c, s in zip(cache, specs)]
+
+    def cache_allocator(self, rules):
+        """``init_cache``'s signature, allocating DTensor shards laid out by
+        the rules' cache specs, filled as ``init_cache`` fills them (the
+        allocation is part of the step, as in JAX's prefill)."""
+        from torch.distributed.tensor import full
+
+        def alloc(cfg, batch, max_len, *, enc_len=0, device=None):
+            meta = M.init_cache(cfg, batch, max_len, enc_len=enc_len,
+                                device="meta")
+            specs = rules.tree_cache_specs(meta)
+            return [{k: full(t.shape, -1 if k == "pos" else 0,
+                             dtype=t.dtype, device_mesh=self.dmesh,
+                             placements=SH.placements(s[k], self.dmesh))
+                     for k, t in c.items()} for c, s in zip(meta, specs)]
+        return alloc
+
+
+def _local_bytes(tree) -> int:
+    """The local shard bytes of every tensor in a nested output."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, torch.nn.Module):
+        tree = dict(tree.named_parameters())
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_local_bytes(v) for v in tree)
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def _lm_cell(arch: str, shape: str, mesh: MESH.Mesh, rules: SH.ShardingRules,
+             placer: _Placer, overrides: dict | None = None):
+    """The cell's step as ``run()`` over DTensor inputs that ``placer`` made
+    (their bytes in ``placer.bytes``), and the record's extra keys, as
+    JAX's ``_lm_cell`` builds its lowered step.  train: the AdamW step on
+    the abstract train state, the moments and metrics then laid out as
+    JAX's ``out_shardings`` say (the moments by their specs, the metrics
+    replicated); prefill: ``make_prefill`` with ``max_len = seq_len +
+    prefix``, its cache allocated as shards; decode: ``make_decode_step``
+    on the cache, the token and the last position of the cache (JAX's
+    int32 index argument counts 4 bytes)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    cfg = lm_config(arch, overrides)
+    shape_cfg = SHAPES[shape]
+    dmesh = placer.dmesh
+    if shape_cfg.kind == "train":
+        params, opt = SP.abstract_train_state(cfg)
+        batch = SP.train_batch_specs(cfg, shape_cfg)
+        pspecs = rules.tree_param_specs(params)
+        ospecs = rules.tree_opt_specs(opt)
+        bspecs = rules.tree_batch_specs(batch)
+        model = placer.module(params, pspecs)
+        opt = {"m": placer.tree(opt["m"], ospecs["m"]),
+               "v": placer.tree(opt["v"], ospecs["v"]),
+               "step": placer.tensor(opt["step"], SH.P())}
+        batch = placer.tree(batch, bspecs)
+        step = ST.make_train_step(cfg)
+        replicated = [Replicate()] * dmesh.ndim
+
+        def run():
+            model_, opt_, metrics = step(model, opt, batch)
+            for key in ("m", "v"):
+                opt_[key] = {n: t.redistribute(dmesh, SH.placements(
+                    ospecs[key][n], dmesh)) for n, t in opt_[key].items()}
+            metrics = {k: v.redistribute(dmesh, replicated)
+                       if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+            return model_, opt_, metrics
+        extra = {"kind": "train",
+                 "tokens": shape_cfg.global_batch * shape_cfg.seq_len}
+    elif shape_cfg.kind == "prefill":
+        params = SP.abstract_params(cfg)
+        model = placer.module(params, rules.tree_param_specs(params))
+        batch = SP.train_batch_specs(cfg, shape_cfg)
+        batch.pop("labels")
+        batch = placer.tree(batch, rules.tree_batch_specs(batch))
+        prefix = cfg.frontend_len if cfg.frontend == "vision_stub" else 0
+        prefill = ST.make_prefill(cfg, max_len=shape_cfg.seq_len + prefix,
+                                  init_cache=placer.cache_allocator(rules))
+
+        def run():
+            return prefill(model, batch)
+        extra = {"kind": "prefill",
+                 "tokens": shape_cfg.global_batch * shape_cfg.seq_len}
+    else:  # decode
+        params = SP.abstract_params(cfg)
+        model = placer.module(params, rules.tree_param_specs(params))
+        cache, token = SP.decode_inputs_specs(cfg, shape_cfg)
+        cache = placer.cache(cache, rules.tree_cache_specs(cache))
+        token = placer.tensor(token, rules.tree_batch_specs(
+            {"tokens": token})["tokens"])
+        placer.bytes += 4
+        decode = ST.make_decode_step(cfg)
+        index = shape_cfg.seq_len - 1
+
+        def run():
+            return decode(model, cache, token, index)
+        extra = {"kind": "decode", "tokens": shape_cfg.global_batch}
+    extra["n_params"] = sum(p.numel() for p in model.parameters())
+    extra["model_flops"] = GC.model_flops(
+        extra["n_params"], extra["tokens"], train=shape_cfg.kind == "train")
+    return run, extra
+
+
+def run_lm_cell(arch: str, shape: str, *, multi_pod: bool = False,
+                overrides: dict | None = None, tag: str = "",
+                mesh: MESH.Mesh | None = None) -> dict:
+    """Plan one LM cell on a production mesh (or ``mesh``) and return JAX's
+    record: ``memory`` (argument bytes = the local shards of every input;
+    output = those of the step's results; temp = the peak of live bytes
+    the step made beyond its inputs; generated code 0), ``bytes_per_device``,
+    ``cost_raw`` and ``cost_corrected`` (the same numbers: the census walks
+    every op, so there is no trip count to correct), ``collectives_naive``,
+    ``roofline`` (priced against the H100's data sheet, with ``n_chips``),
+    ``sharding_fallbacks[:20]`` and ``compile_s`` (seconds to plan).  A
+    cell that raises is ``status: "error"`` with ``error`` and ``trace``;
+    a cell ``shape_applicable`` refuses is ``skipped`` with its reason."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    t0 = time.perf_counter()
+    if mesh is None:
+        mesh = MESH.make_production_mesh(multi_pod=multi_pod)
+    n_chips = mesh.size
+    record = {"arch": arch, "shape": shape,
+              "mesh": "x".join(map(str, mesh.devices.shape)),
+              "multi_pod": multi_pod, "status": "ok", "tag": tag,
+              "device": LM_NOTE}
+    try:
+        ok, reason = shape_applicable(lm_config(arch, overrides), shape)
+        if not ok:
+            record.update(status="skipped", reason=reason)
+            return record
+        rules = SH.ShardingRules(mesh, moe_replicate=bool(
+            (overrides or {}).get("_moe_replicate", False)))
+        with fake_world(mesh) as dmesh, FakeTensorMode():
+            placer = _Placer(mesh, dmesh)
+            run, extra = _lm_cell(arch, shape, mesh, rules, placer,
+                                  overrides)
+            record.update(extra)
+            census = GC.ShardedOpCensus()
+            with implicit_replication(), census:
+                out = run()
+            out_bytes = _local_bytes(out)
+            del out
+        total = census.aten()
+        coll = GC.collective_bytes(census)
+        record["memory"] = {
+            "argument_size_in_bytes": placer.bytes,
+            "output_size_in_bytes": out_bytes,
+            "temp_size_in_bytes": census.peak,
+            "generated_code_size_in_bytes": 0}
+        record["memory_note"] = GENERATED_CODE_NOTE
+        record["bytes_per_device"] = placer.bytes + census.peak
+        flops = total["tensor_ops"] + total["cuda_core_ops"] + \
+            total["bf16_ops"]
+        record["cost_raw"] = {"flops": float(flops),
+                              "bytes_accessed": float(total["bytes"])}
+        record["cost_corrected"] = {
+            "flops": float(flops), "bytes": float(total["bytes"]),
+            **{k: float(coll[k]) for k in GC.COLLECTIVES},
+            "collective_bytes": float(coll["total"])}
+        record["collectives_naive"] = coll
+        record["roofline"] = dict(GC.roofline_terms(
+            total, card=MODEL_CARD, coll_bytes=coll["total"] * n_chips,
+            n_chips=n_chips), n_chips=n_chips)
+        record["aten_ops"] = len(census.ops)
+        record["aten_top"] = dict(sorted(
+            census.by_op().items(), key=lambda kv: -kv[1]["bytes"])[:6])
+        record["sharding_fallbacks"] = rules.fallbacks[:20]
+        record["compile_s"] = time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001 - the cell's record says why
+        record.update(status="error", error=f"{type(e).__name__}: {e}",
+                      trace=traceback.format_exc()[-2000:])
+    return record
+
+
+def run_cell(arch: str, shape: str, *, multi_pod: bool | None = None,
+             kappa: int | None = None, accum: str = "fp32_mantissa",
+             reduction: str = "eager", scan_staging: bool = False,
+             overrides: dict | None = None, tag: str = "",
+             device=None) -> dict:
+    """JAX's ``run_cell``: an ``aegis_*`` arch is a crypto cell, run on
+    ``device`` (:func:`run_crypto_cell`, which raises on a failed check);
+    with ``multi_pod`` set its record names that production mesh and keeps
+    one device's rows.  Any other arch is an LM cell, planned on the host
+    over the production mesh (``multi_pod`` None is the single-pod mesh,
+    JAX's default); ``device`` does not apply to it."""
+    if arch.startswith("aegis_"):
+        rec = run_crypto_cell(arch, shape, accum=accum, reduction=reduction,
+                              kappa=kappa, scan_staging=scan_staging,
+                              tag=tag, device=device)
+        if multi_pod is not None:
+            mesh = MESH.make_production_mesh(multi_pod=multi_pod)
+            rec.update(mesh="x".join(map(str, mesh.devices.shape)),
+                       multi_pod=multi_pod,
+                       mesh_rows="one device's rows (rows_per_core × 1)")
+        return rec
+    return run_lm_cell(arch, shape, multi_pod=bool(multi_pod),
+                       overrides=overrides, tag=tag)
+
+
+def _parse_overrides(items: list) -> dict:
+    """``k=v`` pairs as JAX's CLI parses them: true/false, digits, else a
+    string."""
+    out = {}
+    for ov in items:
+        k, v = ov.split("=", 1)
+        out[k] = {"true": True, "false": False}.get(
+            v.lower(), int(v) if v.isdigit() else v)
+    return out
+
+
+def _print_record(rec: dict, mesh_tag: str):
+    roof = rec.get("roofline", {})
+    if rec["arch"].startswith("aegis_"):
+        dev_ms = rec.get("device_ms")
+        measured = "not measured" if dev_ms is None else f"{dev_ms:.4g}ms"
+        predicted = rec.get("predicted_device_ms", math.nan)
+        nodes = rec.get("kernel_nodes", {})
+        print(f"[{rec['status']:7s}] {rec['arch']:16s} {rec['shape']:10s} "
+              f"{mesh_tag:6s} dom={roof.get('dominant', '-'):8s} "
+              f"K1/K2={nodes.get(K1, '-')}/{nodes.get(K2, '-')} "
+              f"predicted={predicted:.4g}ms device={measured} "
+              f"capture={rec.get('capture_s', 0):.2f}s "
+              f"{rec.get('error', '')[:120]}", flush=True)
+        return
+    coll = rec.get("collectives_naive", {})
+    print(f"[{rec['status']:7s}] {rec['arch']:22s} {rec['shape']:12s} "
+          f"{mesh_tag:6s} dom={roof.get('dominant', '-'):10s} "
+          f"bytes/dev={rec.get('bytes_per_device', '-')} "
+          f"coll={coll.get('total', '-')} "
+          f"plan={rec.get('compile_s', 0):.1f}s "
+          f"{(rec.get('error') or rec.get('reason', ''))[:120]}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="all",
-                    help="aegis_dilithium, aegis_bn254, a comma list, or "
-                         "'all' (the two crypto archs)")
+                    help="an LM arch, aegis_dilithium, aegis_bn254, a comma "
+                         "list, or 'all' (every LM arch and both crypto "
+                         "archs)")
     ap.add_argument("--shape", default="all",
-                    help=f"{', '.join(CRYPTO_SHAPES)}, a comma list or 'all'")
+                    help=f"{', '.join([*SHAPES, *CRYPTO_SHAPES])}, a comma "
+                         f"list or 'all' (each arch takes the shapes of its "
+                         f"kind)")
+    ap.add_argument("--mesh", default=None,
+                    choices=["single", "multi", "both"],
+                    help="production mesh: 16x16 (single), 2x16x16 (multi) "
+                         "or both; default single for the LM cells, the "
+                         "card alone for the crypto cells")
     ap.add_argument("--accum", default="fp32_mantissa",
                     choices=["fp32_mantissa", "int32_native"])
     ap.add_argument("--reduction", default="eager", choices=["eager", "lazy"])
     ap.add_argument("--kappa", type=int, default=None,
                     help="lazy deferral window depth (passes per fold)")
     ap.add_argument("--scan-staging", action="store_true")
+    ap.add_argument("--override", action="append", default=[],
+                    help="ArchConfig overrides of the LM cells, e.g. "
+                         "n_layers=2 or _moe_replicate=true")
     ap.add_argument("--device", default="cuda",
-                    help="'cuda' (default), 'cuda:N' or 'cpu'")
+                    help="the crypto cells' device: 'cuda' (default), "
+                         "'cuda:N' or 'cpu'; the LM cells run on the host")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None,
                     help=f"record directory (default {OUT_DIR})")
     args = ap.parse_args(argv)
-    resolve_device(args.device)         # no CUDA and no --device cpu: raise
 
-    archs = sorted(WORKLOADS) if args.arch == "all" else args.arch.split(",")
-    shapes = (list(CRYPTO_SHAPES) if args.shape == "all"
-              else args.shape.split(","))
-    for name, known, what in ((archs, WORKLOADS, "arch"),
-                              (shapes, CRYPTO_SHAPES, "shape")):
-        unknown = [n for n in name if n not in known]
+    archs = (sorted(ARCHS) + sorted(WORKLOADS) if args.arch == "all"
+             else args.arch.split(","))
+    unknown = [a for a in archs if a not in ARCHS and a not in WORKLOADS]
+    if unknown:
+        ap.error(f"unknown arch {unknown}; expected "
+                 f"{sorted(ARCHS) + sorted(WORKLOADS)}")
+    if args.shape != "all":
+        unknown = [s for s in args.shape.split(",")
+                   if s not in SHAPES and s not in CRYPTO_SHAPES]
         if unknown:
-            ap.error(f"unknown {what} {unknown}; expected {sorted(known)}")
+            ap.error(f"unknown shape {unknown}; expected "
+                     f"{[*SHAPES, *CRYPTO_SHAPES]}")
+    if any(a in WORKLOADS for a in archs):
+        resolve_device(args.device)     # no CUDA and no --device cpu: raise
+    overrides = _parse_overrides(args.override) or None
+    meshes = {None: [None], "single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
     out_dir = Path(args.out) if args.out else OUT_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     failed = 0
     for arch in archs:
+        valid = list(CRYPTO_SHAPES) if arch in WORKLOADS else list(SHAPES)
+        shapes = valid if args.shape == "all" else [
+            s for s in args.shape.split(",") if s in valid]
         for shape in shapes:
-            try:
-                rec = run_cell(arch, shape, accum=args.accum,
-                               reduction=args.reduction, kappa=args.kappa,
-                               scan_staging=args.scan_staging, tag=args.tag,
-                               device=args.device)
-            except Exception as e:  # noqa: BLE001 - a failed cell's record
-                failed += 1
-                rec = {"arch": arch, "shape": shape, "mesh": "1",
-                       "status": "error", "tag": args.tag,
-                       "error": f"{type(e).__name__}: {e}",
-                       "trace": traceback.format_exc()[-2000:]}
-            suffix = f"_{args.tag}" if args.tag else ""
-            path = out_dir / f"{arch}__{shape}__1{suffix}.json"
-            path.write_text(json.dumps(rec, indent=1))
-            roof = rec.get("roofline", {})
-            dev_ms = rec.get("device_ms")
-            measured = ("not measured" if dev_ms is None
-                        else f"{dev_ms:.4g}ms")
-            predicted = rec.get("predicted_device_ms", math.nan)
-            print(f"[{rec['status']:7s}] {arch:16s} {shape:10s} "
-                  f"dom={roof.get('dominant', '-'):8s} "
-                  f"K1/K2={rec.get('kernel_nodes', {}).get(K1, '-')}/"
-                  f"{rec.get('kernel_nodes', {}).get(K2, '-')} "
-                  f"predicted={predicted:.4g}ms device={measured} "
-                  f"capture={rec.get('capture_s', 0):.2f}s "
-                  f"{rec.get('error', '')[:120]}", flush=True)
+            for multi in meshes:
+                if arch in WORKLOADS:
+                    try:
+                        rec = run_cell(arch, shape, multi_pod=multi,
+                                       accum=args.accum,
+                                       reduction=args.reduction,
+                                       kappa=args.kappa,
+                                       scan_staging=args.scan_staging,
+                                       tag=args.tag, device=args.device)
+                    except Exception as e:  # noqa: BLE001 - its record
+                        rec = {"arch": arch, "shape": shape, "mesh": "1",
+                               "status": "error", "tag": args.tag,
+                               "error": f"{type(e).__name__}: {e}",
+                               "trace": traceback.format_exc()[-2000:]}
+                    mesh_tag = {None: "1", False: "single",
+                                True: "multi"}[multi]
+                else:
+                    rec = run_cell(arch, shape, multi_pod=bool(multi),
+                                   overrides=overrides, tag=args.tag)
+                    mesh_tag = "multi" if multi else "single"
+                failed += rec["status"] == "error"
+                suffix = f"_{args.tag}" if args.tag else ""
+                path = out_dir / f"{arch}__{shape}__{mesh_tag}{suffix}.json"
+                path.write_text(json.dumps(rec, indent=1))
+                _print_record(rec, mesh_tag)
     if failed:
         raise SystemExit(f"{failed} cell(s) failed")
 

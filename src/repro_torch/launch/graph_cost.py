@@ -24,11 +24,15 @@ loop's body: the port runs every staging pass unrolled
 (``limb_gemm._staged_passes``), its scan form included, so each pass's ops
 are walked once per pass.
 
-:func:`roofline_terms` gives the compute term (the int8 tensor-core term
-plus the CUDA-core term) and the memory term of a cost, with the JAX key
-names where they mean the same thing; a one-card program has no collective
-term (``collective_bytes`` and ``model_flops`` belong to the mesh and the LM
-cells, which are not ported).  :func:`program_cost` prices a captured
+:func:`roofline_terms` gives the compute term (the int8 and bf16
+tensor-core terms plus the CUDA-core term), the memory term and the
+collective term of a cost, with the JAX key names; a one-card program's
+collective term is 0.  :class:`ShardedOpCensus` is the census of a program
+over a mesh of DTensors (the dry run's LM cells): it prices each op on one
+device's shards, as XLA's post-partition ``cost_analysis()`` counts one
+device's work, and counts the collectives DTensor issues, whose bytes
+:func:`collective_bytes` sums by JAX's kinds.  :func:`model_flops` is
+copied from ``hlo_analysis``.  :func:`program_cost` prices a captured
 program (a :class:`~repro_torch.core.scheduler.program.GraphProbe` whose
 warm-up ran under an :class:`OpCensus`) node by node; :func:`log_cost`
 prices an eager run on the CPU from its launch log and op census.  A predicted device time is the
@@ -38,17 +42,26 @@ another.
 """
 from __future__ import annotations
 
+import contextlib
+import weakref
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import zones
 
 # Device rates of the published data sheets (dense, no sparsity): device
-# memory bandwidth per card name, int8 tensor-core operations, and the
-# non-tensor-core float32 rate as the rate of the CUDA cores' integer work.
+# memory bandwidth per card name, int8 and bf16 tensor-core operations, and
+# the non-tensor-core float32 rate as the rate of the CUDA cores' integer
+# work (and of float32 products: the port runs them with TF32 off).
 BANDWIDTH = {"H200": 4.8e12, "H100": 3.35e12}
 INT8_OPS = 1.979e15
+BF16_OPS = 989e12
 CUDA_CORE_OPS = 67e12
+# One H100 SXM's NVLink 4 rate in one direction: 18 links of 25 GB/s each
+# way (the data sheet's 900 GB/s counts both directions).  A device sends
+# its collective bytes at this rate.
+NVLINK_BW = 450e9
 # Integer operations of the fold (csrc/fold.cuh) per diagonal: its term
 # (sign flip, multiply-high, two multiplies, subtract, and the conditional
 # subtract as a subtract and a min), then one add-mod of the tree (add,
@@ -66,16 +79,18 @@ def bandwidth(card: str) -> float:
     raise ValueError(f"no bandwidth figure for card {card!r}")
 
 
-def cost(bytes_: int = 0, tensor_ops: int = 0, cuda_core_ops: int = 0) -> dict:
-    """A cost: bytes moved, operations on the int8 tensor cores and on the
-    CUDA cores."""
+def cost(bytes_: int = 0, tensor_ops: int = 0, cuda_core_ops: int = 0,
+         bf16_ops: int = 0) -> dict:
+    """A cost: bytes moved, operations on the int8 tensor cores, on the CUDA
+    cores and on the bf16 (or fp16) tensor cores."""
     return {"bytes": bytes_, "tensor_ops": tensor_ops,
-            "cuda_core_ops": cuda_core_ops}
+            "cuda_core_ops": cuda_core_ops, "bf16_ops": bf16_ops}
 
 
 def add(*costs: dict) -> dict:
     return cost(*(sum(c[k] for c in costs)
-                  for k in ("bytes", "tensor_ops", "cuda_core_ops")))
+                  for k in ("bytes", "tensor_ops", "cuda_core_ops",
+                            "bf16_ops")))
 
 
 def node_cost(kernel: str, args: dict) -> dict:
@@ -108,10 +123,10 @@ def node_cost(kernel: str, args: dict) -> dict:
 
 def times_s(c: dict, card: str) -> tuple[float, float]:
     """(memory seconds, compute seconds) of a cost on ``card``: bytes over
-    the bandwidth; tensor-core operations over the int8 rate plus CUDA-core
-    operations over the CUDA-core rate."""
+    the bandwidth; each kind of operation over its rate, summed."""
     return (c["bytes"] / bandwidth(card),
-            c["tensor_ops"] / INT8_OPS + c["cuda_core_ops"] / CUDA_CORE_OPS)
+            c["tensor_ops"] / INT8_OPS + c["cuda_core_ops"] / CUDA_CORE_OPS
+            + c["bf16_ops"] / BF16_OPS)
 
 
 def bound_s(c: dict, card: str) -> tuple[float, str]:
@@ -121,23 +136,43 @@ def bound_s(c: dict, card: str) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def roofline_terms(c: dict, *, card: str) -> dict:
-    """The JAX package's roofline terms of one device's cost, without the
-    collective term: ``flops_per_chip`` counts every operation (integer
-    ones included, as XLA's ``flops`` does), ``bytes_per_chip`` the bytes,
-    ``t_compute_s`` the int8 tensor-core term plus the CUDA-core term."""
+def roofline_terms(c: dict, *, card: str, coll_bytes: int = 0,
+                   n_chips: int = 1) -> dict:
+    """The JAX package's roofline terms of one device's cost:
+    ``flops_per_chip`` counts every operation (integer ones included, as
+    XLA's ``flops`` does), ``bytes_per_chip`` the bytes, ``t_compute_s`` the
+    tensor-core terms plus the CUDA-core term; ``coll_bytes`` is the
+    collective bytes of all ``n_chips`` devices (JAX's
+    ``collective_bytes_total``), so ``t_collective_s`` is one device's share
+    over :data:`NVLINK_BW`.  A one-card program has none (0)."""
     t_memory, t_compute = times_s(c, card)
+    t_collective = coll_bytes / n_chips / NVLINK_BW
+    dominant = "compute" if t_compute > t_memory else "memory"
+    if t_collective > max(t_compute, t_memory):
+        dominant = "collective"
     return {
-        "flops_per_chip": c["tensor_ops"] + c["cuda_core_ops"],
+        "flops_per_chip": c["tensor_ops"] + c["cuda_core_ops"]
+        + c["bf16_ops"],
         "bytes_per_chip": c["bytes"],
+        "collective_bytes_total": coll_bytes,
         "t_compute_s": t_compute,
         "t_memory_s": t_memory,
-        "dominant": "compute" if t_compute > t_memory else "memory",
-        "t_tensor_core_s": c["tensor_ops"] / INT8_OPS,
+        "t_collective_s": t_collective,
+        "dominant": dominant,
+        "t_tensor_core_s": c["tensor_ops"] / INT8_OPS
+        + c["bf16_ops"] / BF16_OPS,
         "t_cuda_core_s": c["cuda_core_ops"] / CUDA_CORE_OPS,
         "card": card,
         "bandwidth": bandwidth(card),
+        "link_bandwidth": NVLINK_BW,
     }
+
+
+def model_flops(n_params: int, n_tokens: int, *, active_params: int | None = None,
+                train: bool = True) -> float:
+    """6·N·D (dense train) / 2·N·D (inference); MoE uses active params."""
+    n = active_params if active_params is not None else n_params
+    return (6.0 if train else 2.0) * n * n_tokens
 
 
 # --- the ATen op walk --------------------------------------------------------
@@ -151,8 +186,14 @@ ELEMENTWISE = frozenset({
     "__xor__", "__lshift__", "__rshift__", "bitwise_left_shift",
     "bitwise_right_shift", "logical_and", "logical_or", "logical_not",
     "logical_xor"})
+# The LM path's float elementwise ops (XLA's elementwise opcodes), one
+# operation per result element.
+FLOAT_ELEMENTWISE = frozenset({
+    "exp", "log", "sqrt", "rsqrt", "tanh", "sigmoid", "silu", "gelu", "sin",
+    "cos", "square", "reciprocal", "erf", "masked_fill"})
 REDUCTIONS = frozenset({"sum", "prod", "amax", "amin", "max", "min", "mean",
-                        "any", "all", "cumsum", "cumprod"})
+                        "any", "all", "cumsum", "cumprod", "var", "_softmax",
+                        "_log_softmax", "sort", "topk"})
 MATMULS = frozenset({"mm", "bmm", "matmul", "addmm", "baddbmm", "_int_mm"})
 # Ops that write their result and read no operand data.
 WRITE_ONLY = frozenset({"zeros", "zeros_like", "ones", "ones_like", "full",
@@ -192,7 +233,8 @@ def aten_cost(func, args, kwargs, out) -> dict | None:
         return cost(_nbytes(args[1]) + written)
     read = _nbytes(args) + _nbytes(list(kwargs.values()))
     elems = sum(t.numel() for t in _tensors(out))
-    if base in ELEMENTWISE:
+    if (base in ELEMENTWISE or base in FLOAT_ELEMENTWISE
+            or base.endswith(("_backward", "_backward_data"))):
         ops = elems
     elif base == "_to_copy":                # hlo's convert is elementwise
         dtype = kwargs.get("dtype")
@@ -202,6 +244,8 @@ def aten_cost(func, args, kwargs, out) -> dict | None:
     elif base in MATMULS:
         lhs = args[1] if base in ("addmm", "baddbmm") else args[0]
         ops = 2 * elems * lhs.shape[-1]
+        if lhs.dtype in (torch.bfloat16, torch.float16):
+            return cost(read + written, bf16_ops=ops)
     else:                                   # data movement: copies, cat, pad
         ops = 0
     return cost(read + written, 0, ops)
@@ -311,3 +355,149 @@ def log_cost(census: OpCensus, *, card: str) -> dict:
     K1/K2/K3 records in place of the graph's nodes.  With no graph there is
     no count of other kernel nodes (None)."""
     return _summary(census.kernel_args(), census, card, None)
+
+
+# --- collectives and the census over a mesh ------------------------------------
+
+# JAX's collective kinds (hlo_analysis._COLLECTIVES), and the functional
+# collectives that DTensor issues, by the kind each is.
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+COLLECTIVE_OPS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "permute_tensor": "collective-permute", "send": "collective-permute",
+    "recv": "collective-permute"}
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+
+
+def collective_kind(func) -> str | None:
+    """JAX's kind of a functional collective op, ``"wait"`` for its
+    ``wait_tensor``, None for any other op.  A collective of no known kind
+    raises: the census never drops a collective."""
+    if func.namespace not in COLLECTIVE_NAMESPACES:
+        return None
+    name = func.overloadpacket.__name__
+    if name == "wait_tensor":
+        return "wait"
+    if name not in COLLECTIVE_OPS:
+        raise ValueError(f"collective {func} has no kind in the census")
+    return COLLECTIVE_OPS[name]
+
+
+def collective_bytes(census) -> dict:
+    """Per-collective-kind byte totals of one device, as JAX's
+    ``hlo_analysis.collective_bytes`` sums them from the HLO: each
+    collective's result bytes (the gathered tensor of an all-gather, the
+    scattered one of a reduce-scatter), with ``count`` and ``total``."""
+    out = {k: 0 for k in COLLECTIVES}
+    out["count"] = 0
+    for kind, nbytes in census.collectives:
+        out[kind] += nbytes
+        out["count"] += 1
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    return out
+
+
+@contextlib.contextmanager
+def _quiet_propagation(census):
+    """While DTensor's sharding propagation runs an op on global fake
+    tensors to learn its output's metadata (once per new op signature),
+    ``census.propagating`` is set: that run is no device's work.  The hook
+    is an instance attribute over ``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, removed on exit."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    name = "_propagate_tensor_meta_non_cached"
+    inner = getattr(prop, name, None)
+    if inner is None:
+        raise RuntimeError(f"this torch's DTensor has no {name}: the census "
+                           f"cannot tell its metadata runs from the work")
+
+    def hooked(op_schema):
+        census.propagating += 1
+        try:
+            return inner(op_schema)
+        finally:
+            census.propagating -= 1
+
+    setattr(prop, name, hooked)
+    try:
+        yield
+    finally:
+        delattr(prop, name)
+
+
+class ShardedOpCensus(OpCensus):
+    """The census of a program over a mesh of DTensors, per device.
+
+    An op on DTensors comes to the census first; it declines it, so DTensor
+    redistributes the inputs and runs the op on the local shards, and those
+    local ops (and the functional collectives of the redistribution) come
+    back to it.  So each op is priced on one device's shards (the rank-0
+    shards), as XLA's post-partition ``cost_analysis()`` prices one device's
+    program, and ``collectives`` holds (kind, result bytes) of every
+    collective.  Ops on plain tensors (positions, masks) are priced as they
+    are.  Memory: every tensor an op creates (not a view, not an input
+    returned in place) counts as live until it is freed; ``peak`` is the
+    most live at once, beyond whatever existed before the census."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.distributed.tensor import DTensor
+        self._dtensor = DTensor
+        self.collectives: list = []
+        self.propagating = 0
+        self.live = self.peak = 0
+        self._quiet = None
+
+    def __enter__(self):
+        self._quiet = _quiet_propagation(self)
+        self._quiet.__enter__()
+        try:
+            return super().__enter__()
+        except BaseException:
+            self._quiet.__exit__(None, None, None)
+            raise
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._quiet.__exit__(*exc)
+
+    def _release(self, nbytes: int):
+        self.live -= nbytes
+
+    def _track(self, func, args, out):
+        if func.is_view:
+            return
+        inputs = {id(t) for t in _tensors(args)}
+        for t in _tensors(out):
+            if id(t) in inputs:
+                continue
+            nbytes = t.numel() * t.element_size()
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(t, self._release, nbytes)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self.propagating:
+            return out
+        kind = collective_kind(func)
+        if kind is None:
+            c = aten_cost(func, args, kwargs, out)
+            if c is not None:
+                self.ops.append((str(func), c))
+        elif kind != "wait":
+            self.collectives.append((kind, _nbytes(out)))
+        self._track(func, args, out)
+        return out

@@ -14,10 +14,18 @@ taken here on float32 operands, so its output is never rounded to bf16.
 No library attention kernel: masks use ``NEG_INF`` (-1e30), not -inf, and
 the blockwise form's online softmax runs in float32, as in the JAX package.
 KV caches are updated in place (the JAX package returns new arrays).
+
+Over DTensors (the dry run's mesh plans) both attention forms run on each
+device's shards (:func:`per_device_attention`): attention is independent
+per batch row and per KV-head group, as XLA's partitioner treats it, while
+DTensor's own einsum rule would flatten a batch and a head dim that are
+both sharded into one, which some torch releases refuse.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import sys
 
 import torch
 import torch.nn.functional as F
@@ -33,14 +41,19 @@ class ParamInit:
     normal(0, 0.02) in the given dtype, as ``jax.nn.initializers.normal(0.02)``
     draws them in the JAX package.  Torch's stream is not JAX's PRNG, so the
     values differ from the JAX package's for the same seed; the distributions
-    are the same."""
+    are the same.  On ``torch.device("meta")`` there is no generator and
+    nothing is drawn: the parameters hold shapes and dtypes only."""
 
     def __init__(self, device: torch.device, seed: int):
         self.device = device
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        # on "meta" (shapes only, the dry run's stand-ins) nothing is drawn
+        self.generator = (None if device.type == "meta" else
+                          torch.Generator(device=device).manual_seed(seed))
 
     def normal(self, shape, dtype) -> nn.Parameter:
         w = torch.empty(shape, dtype=dtype, device=self.device)
+        if self.generator is None:
+            return nn.Parameter(w)
         return nn.Parameter(w.normal_(0.0, 0.02, generator=self.generator))
 
     def full(self, shape, value, dtype) -> nn.Parameter:
@@ -51,7 +64,24 @@ class ParamInit:
 # --- norms --------------------------------------------------------------------
 
 
+def _whole_rows(x):
+    """x itself, or, for a DTensor holding partial sums (a row-parallel
+    product's output, a lookup in a vocabulary-sharded table), x with them
+    reduced: a norm reads whole rows, so its input is all-reduced there, as
+    Megatron and XLA's partitioner place that all-reduce.  (DTensor would
+    otherwise carry the partial sums through the norm's linear steps into
+    the next product, and every device would then run that product whole.)"""
+    dtensor = dtensor_type()
+    if dtensor is None or not isinstance(x, dtensor) or not any(
+            p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
+
+
 def rmsnorm(x, weight):
+    x = _whole_rows(x)
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + 1e-6)
@@ -59,6 +89,7 @@ def rmsnorm(x, weight):
 
 
 def layernorm(x, weight, bias):
+    x = _whole_rows(x)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)    # jnp.var: population
@@ -68,6 +99,7 @@ def layernorm(x, weight, bias):
 
 def layernorm_np(x):
     """OLMo's non-parametric LayerNorm (no weight/bias)."""
+    x = _whole_rows(x)
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)
@@ -143,6 +175,102 @@ def update_slice(buf, new, index: int):
     return buf
 
 
+def dtensor_type():
+    """DTensor's class, or None while ``torch.distributed.tensor`` is not
+    imported (then no tensor is one)."""
+    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                   None)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor made from
+    a local shard states its global strides)."""
+    return torch.empty(shape, device="meta").stride()
+
+
+def per_device_attention(fn):
+    """``fn(q, k, v, **kw)`` on plain tensors as it is; on DTensors, on each
+    device's shards.  Per mesh dimension, a batch shard of q (dim 0) stays;
+    otherwise the heads (dim 2) are sharded there when the query and the KV
+    head counts both divide (each device keeps whole GQA groups), else the
+    dimension is replicated.  q, k and v are brought to those placements
+    (DTensor reduces a partial q, gathers a sequence-sharded cache), ``fn``
+    runs on the local shards, and the output, of q's shape, keeps them."""
+    @functools.wraps(fn)
+    def wrapped(q, k, v, **kw):
+        dtensor = dtensor_type()
+        if dtensor is None or not isinstance(q, dtensor):
+            return fn(q, k, v, **kw)
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, target, cut = q.device_mesh, [], 1
+        for dim, p in enumerate(q.placements):
+            n = mesh.size(dim)
+            if isinstance(p, Shard) and p.dim == 0:
+                target.append(p)
+            elif not (q.shape[2] % (cut * n) or k.shape[2] % (cut * n)):
+                target.append(Shard(2))
+                cut *= n
+            else:
+                target.append(Replicate())
+        q, k, v = (t.redistribute(mesh, target) for t in (q, k, v))
+        out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+        # the local result may be a permuted view; the DTensor's metadata
+        # says contiguous
+        return dtensor.from_local(out.contiguous(), mesh, target,
+                                  run_check=False, shape=q.shape,
+                                  stride=contiguous_stride(q.shape))
+    return wrapped
+
+
+def embed_lookup(table, tokens):
+    """``table[tokens]``, the embedding lookup (JAX's ``params["embed"]
+    [tokens]``).  On a DTensor table it runs on each device's shards, as
+    XLA partitions a gather: each device looks its tokens up in its own rows
+    of the table (a table sharded over the vocabulary gives zeros for the
+    rows it does not hold, so that mesh dimension's output is a partial
+    sum), and the output keeps the tokens' placements elsewhere.  A mesh
+    dimension that shards both the tokens and the table, or the table's
+    vocabulary over more than one mesh dimension, raises."""
+    dtensor = dtensor_type()
+    if dtensor is None or not isinstance(table, dtensor):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    if not isinstance(tokens, dtensor):
+        tokens = dtensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    out_placements, offset, vocab_dims = [], 0, 0
+    coord = mesh.get_coordinate()
+    for dim, (pt, pw) in enumerate(zip(tokens.placements, table.placements)):
+        if pt.is_partial() or (pt.is_shard() and pw.is_shard()):
+            raise NotImplementedError(
+                f"embed_lookup over DTensors: tokens {tokens.placements}, "
+                f"table {table.placements}")
+        if pw.is_shard(0):
+            vocab_dims += 1
+            offset = coord[dim] * (table.shape[0] // mesh.size(dim))
+            out_placements.append(Partial())
+        elif pw.is_shard(1):
+            out_placements.append(Shard(tokens.ndim))
+        else:
+            out_placements.append(pt)
+    if vocab_dims > 1:
+        raise NotImplementedError(
+            f"embed_lookup over DTensors: the table {table.placements} "
+            f"shards its vocabulary over more than one mesh dimension")
+    rows = table.to_local()
+    tok = tokens.to_local().long() - offset
+    valid = (tok >= 0) & (tok < rows.shape[0])
+    out = rows[tok.clamp(0, rows.shape[0] - 1)] * valid[..., None].to(
+        rows.dtype)
+    shape = (*tokens.shape, table.shape[1])
+    return dtensor.from_local(out, mesh, out_placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+@per_device_attention
 def naive_attention(q, k, v, *, causal: bool, window: int = 0,
                     q_offset: int = 0):
     """q: (B, Sq, Hq, Dh), k/v: (B, Skv, Hkv, Dh), Hkv | Hq (GQA grouped).
@@ -168,6 +296,7 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
+@per_device_attention
 def blockwise_attention(q, k, v, *, causal: bool, block: int = 1024,
                         window: int = 0):
     """Flash-style online-softmax attention: KV walked in blocks, O(S·block)

@@ -37,6 +37,15 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 
+def model_device(device) -> torch.device:
+    """``resolve_device(device)``, except that ``"meta"`` stays meta: a
+    model or a cache on meta holds shapes and dtypes, no data, and runs on
+    no device."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 class Layer(nn.Module):
     """One layer's parameters (JAX's ``_layer_params``); kind: decoder |
     encoder | cross_decoder | ssm_only."""
@@ -71,11 +80,13 @@ class LMModel(nn.Module):
     JAX package's distributions, not its values (torch's stream is not JAX's
     PRNG).  :func:`repro_torch.models.convert.params_from_jax` loads a JAX
     parameter tree instead.  Parameter names are the JAX tree's paths with
-    the layer index after ``layers.`` / ``enc_layers.``."""
+    the layer index after ``layers.`` / ``enc_layers.``.  On
+    ``device="meta"`` the model holds shapes and dtypes only (the dry run's
+    ``abstract_params``): nothing is drawn."""
 
     def __init__(self, cfg, *, device=None, seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
+        dev = model_device(device)
         init = L.ParamInit(dev, seed)
         dt = torch_dtype(cfg)
         self.cfg = cfg
@@ -117,7 +128,7 @@ class LMModel(nn.Module):
         return L.apply_norm(cfg, self, x, "enc_ln_final")
 
     def _embed_tokens(self, tokens, positions):
-        x = self.embed[tokens.long()]
+        x = L.embed_lookup(self.embed, tokens)
         if self.cfg.max_position_embeddings:
             pos = torch.clamp(positions,
                               max=self.cfg.max_position_embeddings - 1)
@@ -192,8 +203,9 @@ def init_cache(cfg, batch: int, max_len: int, *, enc_len: int = 0,
                device=None) -> list[dict]:
     """One dict per layer: "k"/"v" (B, cache_len, Hkv, Dh), "pos" (B,
     cache_len) int32 from -1 for a sliding window, "state" (B, H, P, N)
-    float32 for SSM layers, "cross_k"/"cross_v" (B, enc_len, Hkv, Dh)."""
-    dev = resolve_device(device)
+    float32 for SSM layers, "cross_k"/"cross_v" (B, enc_len, Hkv, Dh).
+    ``device="meta"`` gives shapes only, as the model does."""
+    dev = model_device(device)
     dt = torch_dtype(cfg)
     cache_len = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
     cache = []

@@ -12,14 +12,57 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
 
+def _label_log_probs(logits, labels):
+    """log_softmax(logits) at ``labels``.  On a DTensor whose vocabulary is
+    sharded it runs on each device's shards (the vocabulary-parallel cross
+    entropy of Megatron, and what XLA's partitioner makes of
+    ``log_softmax``): the row max, the sum of exponentials and the label's
+    logit (looked up in the shard that holds it) are each reduced over the
+    vocabulary's mesh dimension, so no device holds the (B, S, V) logits
+    whole, as it would under DTensor's own ``log_softmax``."""
+    dtensor = L.dtensor_type()
+    vdim = [] if dtensor is None or not isinstance(logits, dtensor) else [
+        d for d, p in enumerate(logits.placements)
+        if p.is_shard(logits.ndim - 1)]
+    if not vdim:
+        logp = F.log_softmax(logits, dim=-1)
+        return logp.gather(-1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    (vdim,) = vdim
+    mesh = logits.device_mesh
+    rows = [Replicate() if d == vdim else p
+            for d, p in enumerate(logits.placements)]
+
+    def reduced(local, op):
+        """A per-shard partial result reduced over the vocabulary shards."""
+        placements = list(rows)
+        placements[vdim] = Partial(op)
+        return dtensor.from_local(local, mesh, placements,
+                                  run_check=False).redistribute(
+            mesh, rows).to_local()
+
+    local = logits.to_local()
+    v_local = local.shape[-1]
+    offset = mesh.get_coordinate()[vdim] * v_local
+    label = labels.redistribute(mesh, rows).to_local().long() - offset
+    held = (label >= 0) & (label < v_local)
+    shifted = local - reduced(local.detach().amax(-1, keepdim=True), "max")
+    lse = torch.log(reduced(torch.exp(shifted).sum(-1), "sum"))
+    picked = shifted.gather(-1, label.clamp(0, v_local - 1)[..., None])[..., 0]
+    picked = reduced(picked * held.to(picked.dtype), "sum")
+    return dtensor.from_local(picked - lse, mesh, rows, run_check=False,
+                              shape=labels.shape,
+                              stride=L.contiguous_stride(labels.shape))
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean CE over valid positions; logits f32 (B, S, V), labels (B, S)."""
-    logp = F.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    ll = _label_log_probs(logits, labels)
     if mask is None:
         mask = torch.ones_like(ll)
     mask = mask.float()
@@ -44,13 +87,16 @@ def make_eval_step(cfg):
     return eval_step
 
 
-def make_prefill(cfg, max_len: int):
+def make_prefill(cfg, max_len: int, *, init_cache=M.init_cache):
+    """``prefill(model, batch) -> (logits, cache)``.  ``init_cache``
+    allocates the cache (``init_cache(cfg, batch, max_len, enc_len=,
+    device=)``); the dry run passes one that allocates DTensor shards."""
     @torch.no_grad()
     def prefill(model, batch):
         b = batch["tokens"].shape[0]
         enc_len = batch["embeds"].shape[1] if cfg.encoder_layers else 0
-        cache = M.init_cache(cfg, b, max_len, enc_len=enc_len,
-                             device=model.device)
+        cache = init_cache(cfg, b, max_len, enc_len=enc_len,
+                           device=model.device)
         if cfg.encoder_layers:
             enc_out = model.encode(batch["embeds"])
             cache = M.fill_cross_cache(cfg, model, cache, enc_out)
@@ -61,13 +107,30 @@ def make_prefill(cfg, max_len: int):
     return prefill
 
 
+def greedy_token(logits):
+    """The argmax over the vocabulary of the last position, (B,) int32.  A
+    DTensor's vocabulary shards (and partial sums) are gathered first:
+    DTensor's sharded argmax reads its shards' offsets as numbers, which
+    the dry run's fake tensors do not hold; the gather is the plan's, and
+    its census counts it."""
+    last = logits[:, -1]
+    dtensor = L.dtensor_type()
+    if dtensor is not None and isinstance(last, dtensor):
+        from torch.distributed.tensor import Replicate
+        last = last.redistribute(last.device_mesh, [
+            Replicate() if p.is_partial() or (p.is_shard()
+                                              and p.dim == last.ndim - 1)
+            else p for p in last.placements])
+    return torch.argmax(last, dim=-1).to(torch.int32)
+
+
 def make_decode_step(cfg):
     @torch.no_grad()
     def decode_step(model, cache, token, cache_index: int):
         """token: (B, 1) int32; cache_index: the token's position."""
         logits, _, cache = model({"tokens": token}, mode="decode",
                                  cache=cache, cache_index=cache_index)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        next_tok = greedy_token(logits)
         return next_tok[:, None], logits, cache
 
     return decode_step

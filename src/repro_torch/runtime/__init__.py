@@ -1,5 +1,9 @@
-"""The fault-tolerant training loop of the port — the counterpart of
-``repro.runtime.fault_tolerance``.  ``repro.runtime``'s compression and
-pipeline modules need several devices and a process group and are not
-ported yet."""
+"""The runtime of the port — the counterpart of ``repro.runtime``: the int8
+error-feedback gradient sync and the fault-tolerant training loop, exported
+as the JAX package exports them; GPipe is ``repro_torch.runtime.pipeline``.
+The sync and the pipeline run every mesh position from one process, each
+on its own device (several positions may share a card)."""
+from repro_torch.runtime.compression import (quantize_int8, dequantize_int8,
+                                             compressed_grad_sync,
+                                             init_error_state)
 from repro_torch.runtime.fault_tolerance import FaultTolerantLoop, StepWatchdog
