@@ -162,7 +162,10 @@ Phases, each printing one JSON line:
    pool's bytes and the card; then the LM cells of the dry run
    (``run_cell`` on the production meshes, planned on the host: a fake
    process group, DTensors under FakeTensorMode, the sharded census):
-   olmo_1b ``train_4k`` and ``decode_32k`` and mamba2_370m ``long_500k``
+   olmo_1b ``train_4k`` and ``decode_32k``, mamba2_370m ``long_500k`` and
+   one cell per per-device region of the models (internlm2_20b,
+   whisper_large_v3, mamba2_370m, moonshot_v1_16b_a3b and
+   granite_moe_3b_a800m ``decode_32k``, hymba_1_5b ``long_500k``)
    on 16 × 16 and 2 × 16 × 16, each ``ok`` with its bytes per device,
    roofline terms, collective bytes by kind and plan seconds (K1/K2/K3 at
    0), llama3_405b ``long_500k`` ``skipped``; and the census on this torch
@@ -459,9 +462,20 @@ DIST_RUNS = 5
 DIST_SYNC_RUNS = 3
 DIST_AQT_TOKENS = (8, 128)
 # The dry run's LM cells on both production meshes (ok), and the cell the
-# skip rule refuses.
+# skip rule refuses.  After olmo_1b and mamba2_370m's long context, one
+# full-width cell per per-device region of repro_torch.models: a GQA head
+# split (48/8 heads over model = 16), whisper's cross attention (20/20),
+# hymba's window ring on a sequence-sharded cache (25/5 heads, 25 SSD
+# heads), SSD over a sharded batch, the MoE dispatch expert-parallel (64
+# experts) and over MOE_ALT's d_ff shards (40 experts, 24/8 heads).
 DRYRUN_LM_CELLS = [("olmo_1b", "train_4k"), ("olmo_1b", "decode_32k"),
-                   ("mamba2_370m", "long_500k")]
+                   ("mamba2_370m", "long_500k"),
+                   ("internlm2_20b", "decode_32k"),
+                   ("whisper_large_v3", "decode_32k"),
+                   ("hymba_1_5b", "long_500k"),
+                   ("mamba2_370m", "decode_32k"),
+                   ("moonshot_v1_16b_a3b", "decode_32k"),
+                   ("granite_moe_3b_a800m", "decode_32k")]
 DRYRUN_LM_SKIPPED = [("llama3_405b", "long_500k")]
 
 # K1 main-path shapes (N, K, M): Dilithium passes at d = 64, 128, 256, 512

@@ -15,16 +15,24 @@ No library attention kernel: masks use ``NEG_INF`` (-1e30), not -inf, and
 the blockwise form's online softmax runs in float32, as in the JAX package.
 KV caches are updated in place (the JAX package returns new arrays).
 
-Over DTensors (the dry run's mesh plans) both attention forms run on each
-device's shards (:func:`per_device_attention`): attention is independent
-per batch row and per KV-head group, as XLA's partitioner treats it, while
-DTensor's own einsum rule would flatten a batch and a head dim that are
-both sharded into one, which some torch releases refuse.
+Over DTensors (the dry run's mesh plans) the ops DTensor's own rules
+refuse run as regions on each device's shards, as XLA's partitioner
+reshards where DTensor will not.  A projection sharded over ``model`` is
+viewed as heads by :func:`split_heads`, gathered first where the head count
+does not divide the shards.  Both attention forms run per device
+(:func:`per_device_attention`): attention is independent per batch row and
+per query head, so a device keeps whole GQA groups, or query heads of one
+group with that group's KV head, or the whole; DTensor's einsum rule would
+flatten a sharded batch and head dim into one, which some torch releases
+refuse.  The MoE dispatch has no DTensor rule (``index_put_``): its
+routed experts run per device (:func:`_moe_per_device`) and compute the
+unsharded function.  The plain-tensor path is untouched by all of it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import sys
 
 import torch
@@ -188,38 +196,140 @@ def contiguous_stride(shape) -> tuple:
     return torch.empty(shape, device="meta").stride()
 
 
+def from_local(local, mesh, placements, shape):
+    """The DTensor of global ``shape`` (contiguous) on ``mesh`` at
+    ``placements`` whose shard on this device is ``local``."""
+    shape = torch.Size(shape)
+    return dtensor_type().from_local(local, mesh, placements,
+                                     run_check=False, shape=shape,
+                                     stride=contiguous_stride(shape))
+
+
+def _block_index(coord, dims, mesh) -> int:
+    """The index of this device's shard of a tensor dim sharded over the
+    mesh dimensions ``dims`` (in mesh order, the first major, as DTensor
+    lays a dim over several mesh dimensions out)."""
+    index = 0
+    for dim in dims:
+        index = index * mesh.size(dim) + coord[dim]
+    return index
+
+
 def per_device_attention(fn):
     """``fn(q, k, v, **kw)`` on plain tensors as it is; on DTensors, on each
     device's shards.  Per mesh dimension, a batch shard of q (dim 0) stays;
-    otherwise the heads (dim 2) are sharded there when the query and the KV
-    head counts both divide (each device keeps whole GQA groups), else the
-    dimension is replicated.  q, k and v are brought to those placements
-    (DTensor reduces a partial q, gathers a sequence-sharded cache), ``fn``
-    runs on the local shards, and the output, of q's shape, keeps them."""
+    otherwise the query heads (dim 2) are sharded there when they divide
+    and each device's query heads then still make whole GQA groups (the KV
+    heads are sharded with them) or lie in one group (the KV heads are
+    replicated there, and each device attends with its group's KV head);
+    else the dimension is replicated.  q, k and v are brought to those
+    placements (DTensor reduces a partial q, gathers a sequence-sharded
+    cache), ``fn`` runs on the local shards, and the output, of q's shape,
+    keeps q's.  A replicated KV head that only some devices attend with
+    gets its gradient as a partial sum there."""
     @functools.wraps(fn)
     def wrapped(q, k, v, **kw):
         dtensor = dtensor_type()
         if dtensor is None or not isinstance(q, dtensor):
             return fn(q, k, v, **kw)
-        from torch.distributed.tensor import Replicate, Shard
-        mesh, target, cut = q.device_mesh, [], 1
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh, hq, hkv = q.device_mesh, q.shape[2], k.shape[2]
+        group = hq // hkv
+        # per mesh dim: (q's placement, k/v's, k/v's gradient's)
+        plan, q_dims, kv_dims, q_cut, kv_cut = [], [], [], 1, 1
         for dim, p in enumerate(q.placements):
             n = mesh.size(dim)
+            heads = hq % (q_cut * n) == 0
             if isinstance(p, Shard) and p.dim == 0:
-                target.append(p)
-            elif not (q.shape[2] % (cut * n) or k.shape[2] % (cut * n)):
-                target.append(Shard(2))
-                cut *= n
+                plan.append((p, p, p))
+            elif heads and q_cut == kv_cut and hkv % (kv_cut * n) == 0:
+                plan.append((Shard(2), Shard(2), Shard(2)))
+                q_dims.append(dim)
+                kv_dims.append(dim)
+                q_cut, kv_cut = q_cut * n, kv_cut * n
+            elif heads and group % (hq // (q_cut * n)) == 0:
+                plan.append((Shard(2), Replicate(), Partial()))
+                q_dims.append(dim)
+                q_cut *= n
             else:
-                target.append(Replicate())
-        q, k, v = (t.redistribute(mesh, target) for t in (q, k, v))
-        out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+                plan.append((Replicate(), Replicate(), Replicate()))
+        q_target, kv_target, kv_grad = (list(c) for c in zip(*plan))
+        q = q.redistribute(mesh, q_target)
+        k, v = (t.redistribute(mesh, kv_target) for t in (k, v))
+        k_loc, v_loc = (t.to_local(grad_placements=kv_grad) for t in (k, v))
+        if q_cut > kv_cut:
+            # this device's query heads lie in one group: its KV head
+            coord = mesh.get_coordinate()
+            first = _block_index(coord, q_dims, mesh) * (hq // q_cut)
+            head = first // group - _block_index(coord, kv_dims, mesh) * (
+                hkv // kv_cut)
+            k_loc = k_loc[:, :, head:head + 1]
+            v_loc = v_loc[:, :, head:head + 1]
+        out = fn(q.to_local(), k_loc, v_loc, **kw)
         # the local result may be a permuted view; the DTensor's metadata
         # says contiguous
-        return dtensor.from_local(out.contiguous(), mesh, target,
-                                  run_check=False, shape=q.shape,
-                                  stride=contiguous_stride(q.shape))
+        return from_local(out.contiguous(), mesh, q_target, q.shape)
     return wrapped
+
+
+def split_heads(x, n_heads: int, d_head: int):
+    """(B, S, n_heads·d_head) -> (B, S, n_heads, d_head): a projection
+    viewed as heads.  On a DTensor, per mesh dimension, a shard of the
+    projection's columns stays a shard of the heads where the head count
+    divides it (each device holds whole heads), and is gathered first
+    where it does not (an all-gather of the projection); a batch shard or a
+    partial sum stays as it is."""
+    dtensor = dtensor_type()
+    b, s = x.shape[:2]
+    if dtensor is None or not isinstance(x, dtensor):
+        return x.reshape(b, s, n_heads, d_head)
+    from torch.distributed.tensor import Replicate
+    mesh, last, cut, target = x.device_mesh, x.ndim - 1, 1, []
+    for dim, p in enumerate(x.placements):
+        if p.is_shard(last) and n_heads % (cut * mesh.size(dim)):
+            p = Replicate()
+        elif p.is_shard(last):
+            cut *= mesh.size(dim)
+        target.append(p)
+    x = x.redistribute(mesh, target)
+    local = x.to_local()
+    local = local.reshape(*local.shape[:2], n_heads // cut, d_head)
+    return from_local(local, mesh, target, (b, s, n_heads, d_head))
+
+
+def merge_heads(x):
+    """(B, S, H, Dh) -> (B, S, H·Dh) (or any (B, S, ...) to (B, S, -1)),
+    the attention output before ``wo``.  On a DTensor it runs on each
+    device's shards (a shard of dim 2 is a shard of the merged columns; a
+    shard of a later dim is gathered first), so its gradient, which comes
+    back from ``wo`` as a column shard, is brought to the heads'
+    placements (gathered where the heads are replicated) instead of split
+    into heads that do not divide it."""
+    b, s = x.shape[:2]
+    dtensor = dtensor_type()
+    if dtensor is None or not isinstance(x, dtensor):
+        return x.reshape(b, s, -1)
+    from torch.distributed.tensor import Replicate
+    target = [Replicate() if p.is_shard() and p.dim > 2 else p
+              for p in x.placements]
+    x = x.redistribute(x.device_mesh, target)
+    local = x.to_local()
+    return from_local(local.reshape(*local.shape[:2], -1), x.device_mesh,
+                      target, (b, s, math.prod(x.shape[2:])))
+
+
+def shard_like(t, ref):
+    """The plain tensor ``t``, of ``ref``'s global shape, as a DTensor at
+    ``ref``'s placements, which shard dim 0 or nothing: each device keeps
+    its rows, nothing is sent."""
+    mesh = ref.device_mesh
+    if any(p.is_partial() or (p.is_shard() and not p.is_shard(0))
+           for p in ref.placements):
+        raise NotImplementedError(f"shard_like at {ref.placements}")
+    dims = [dim for dim, p in enumerate(ref.placements) if p.is_shard(0)]
+    rows = t.shape[0] // math.prod(mesh.size(dim) for dim in dims)
+    first = _block_index(mesh.get_coordinate(), dims, mesh) * rows
+    return from_local(t[first:first + rows], mesh, ref.placements, t.shape)
 
 
 def embed_lookup(table, tokens):
@@ -228,9 +338,10 @@ def embed_lookup(table, tokens):
     XLA partitions a gather: each device looks its tokens up in its own rows
     of the table (a table sharded over the vocabulary gives zeros for the
     rows it does not hold, so that mesh dimension's output is a partial
-    sum), and the output keeps the tokens' placements elsewhere.  A mesh
-    dimension that shards both the tokens and the table, or the table's
-    vocabulary over more than one mesh dimension, raises."""
+    sum), and the output keeps the tokens' placements elsewhere; the
+    table's gradient is a partial sum over the dims that shard the tokens.
+    A mesh dimension that shards both the tokens and the table, or the
+    table's vocabulary over more than one mesh dimension, raises."""
     dtensor = dtensor_type()
     if dtensor is None or not isinstance(table, dtensor):
         return table[tokens.long()]
@@ -259,15 +370,17 @@ def embed_lookup(table, tokens):
         raise NotImplementedError(
             f"embed_lookup over DTensors: the table {table.placements} "
             f"shards its vocabulary over more than one mesh dimension")
-    rows = table.to_local()
+    # a mesh dim that shards the tokens looks up different rows on each
+    # device: the table's gradient is a partial sum there
+    rows = table.to_local(grad_placements=[
+        Partial() if pt.is_shard() else pw
+        for pt, pw in zip(tokens.placements, table.placements)])
     tok = tokens.to_local().long() - offset
     valid = (tok >= 0) & (tok < rows.shape[0])
     out = rows[tok.clamp(0, rows.shape[0] - 1)] * valid[..., None].to(
         rows.dtype)
-    shape = (*tokens.shape, table.shape[1])
-    return dtensor.from_local(out, mesh, out_placements, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=contiguous_stride(shape))
+    return from_local(out, mesh, out_placements,
+                      (*tokens.shape, table.shape[1]))
 
 
 @per_device_attention
@@ -367,13 +480,13 @@ class Attention(nn.Module):
         cache_index.  kv_override: (k, v) for cross-attention (encoder
         outputs, pre-projected)."""
         cfg = self.cfg
-        b, s, _ = x.shape
+        s = x.shape[1]
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         window = cfg.attn_window if window is None else window
-        q = (x @ self.wq).reshape(b, s, hq, dh)
+        q = split_heads(x @ self.wq, hq, dh)
         if kv_override is None:
-            k = (x @ self.wk).reshape(b, s, hkv, dh)
-            v = (x @ self.wv).reshape(b, s, hkv, dh)
+            k = split_heads(x @ self.wk, hkv, dh)
+            v = split_heads(x @ self.wv, hkv, dh)
             if cfg.rope:
                 q = apply_rope(q, positions, cfg.rope_theta)
                 k = apply_rope(k, positions, cfg.rope_theta)
@@ -393,7 +506,7 @@ class Attention(nn.Module):
                                       block=cfg.attn_block_size, window=window)
         else:
             out = naive_attention(q, k, v, causal=causal, window=window)
-        return out.reshape(b, s, hq * dh) @ self.wo, cache
+        return merge_heads(out) @ self.wo, cache
 
 
 # --- MLP ----------------------------------------------------------------------
@@ -431,6 +544,17 @@ def _top_k(logits, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _slots(onehot, flat_e, capacity: int, offset=None):
+    """(keep, slot) of each choice: its position among the choices of its
+    expert in token order (after ``offset[e]`` earlier ones), kept below
+    the capacity, the slot clamped to the last."""
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    if offset is not None:
+        pos = pos + offset[None]
+    pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
+    return pos_in_e < capacity, torch.clamp(pos_in_e, max=capacity - 1)
+
+
 class MoE(nn.Module):
     """Capacity-based top-k MoE with scatter dispatch / gather combine
     (Switch semantics: overflowing tokens are dropped).  The router is
@@ -454,6 +578,12 @@ class MoE(nn.Module):
         cfg = self.cfg
         if capacity_factor is None:
             capacity_factor = cfg.moe_capacity_factor
+        dtensor = dtensor_type()
+        if dtensor is not None and isinstance(x, dtensor):
+            out, aux = _moe_per_device(self, x, capacity_factor)
+            if cfg.n_shared_experts:
+                out = out + self.shared(x)
+            return out, aux
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.top_k
         t = b * s
@@ -473,11 +603,8 @@ class MoE(nn.Module):
         flat_gate = gates.reshape(-1)
         flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
         onehot = F.one_hot(flat_e, e)                              # (T·K, E)
-        pos = torch.cumsum(onehot, dim=0) - onehot
-        pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
         capacity = max(4, int(t * k / e * capacity_factor + 0.999))
-        keep = pos_in_e < capacity
-        pos_c = torch.clamp(pos_in_e, max=capacity - 1)
+        keep, pos_c = _slots(onehot, flat_e, capacity)
 
         # dispatch: a kept token owns its slot; a dropped one adds zeros to
         # slot capacity - 1, so the accumulating scatter is exact in any order
@@ -500,3 +627,132 @@ class MoE(nn.Module):
         if cfg.n_shared_experts:
             out = out + self.shared(x)
         return out, aux
+
+
+def _moe_per_device(moe, x, capacity_factor: float):
+    """:meth:`MoE.forward`'s routed experts on DTensors, on each device's
+    shards, computing the unsharded function: the capacity comes from the
+    global token count, and each choice's slot is its position in the
+    global token order (batch shards are contiguous runs of it), so the
+    same tokens are kept and dropped.  Per device: route its tokens; gather
+    every batch shard's count per expert (an E-vector each) to offset its
+    positions; scatter its kept choices for the experts it holds into an
+    (E_local, C, d) buffer, a partial sum over the batch shards, which is
+    reduced over them (scattered over the capacity slots where they divide
+    it, else whole); run its experts (its own under expert parallelism,
+    its d_ff slice of every one under ``MOE_ALT``, all of them replicated);
+    gather the slots back, pick its choices' rows and sum each token's K
+    choices over the devices holding their experts, in order.  The
+    load-balancing loss sums its means over the batch shards.  Returns
+    (out without the shared experts, aux)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    cfg = moe.cfg
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    capacity = max(4, int(t * k / e * capacity_factor + 0.999))
+    coord = mesh.get_coordinate()
+    x_target = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    batch = [dim for dim, p in enumerate(x_target) if p.is_shard(0)]
+    # the mesh dims that split the experts' weights (experts or d_ff)
+    split = [dim for dim, p in enumerate(moe.wi_gate.placements)
+             if p.is_shard()]
+    ep = [dim for dim in split if moe.wi_gate.placements[dim].is_shard(0)]
+    e_loc = e // math.prod(mesh.size(dim) for dim in ep)
+    e0 = _block_index(coord, ep, mesh) * e_loc
+    slots, cut = [], 1                  # batch dims that split the slots
+    for dim in batch:
+        if capacity % (cut * mesh.size(dim)) == 0:
+            slots.append(dim)
+            cut *= mesh.size(dim)
+    whole = [Replicate()] * mesh.ndim
+    # a token's value on the devices that split the experts: a partial sum
+    per_token = [Partial() if dim in split else p
+                 for dim, p in enumerate(x_target)]
+
+    x = x.redistribute(mesh, x_target)
+    logits = x.float() @ moe.router                              # (T, E)
+    x_loc = x.to_local(grad_placements=per_token)
+    b_loc = x_loc.shape[0]
+    t_loc = b_loc * s
+    xf = x_loc.reshape(t_loc, d)
+    topv, topi = _top_k(logits.to_local(grad_placements=per_token).reshape(
+        t_loc, e), k)
+    gates = torch.softmax(topv, dim=-1)
+
+    def total(local):
+        """The sum over the batch shards of a local (E,) sum, replicated."""
+        return from_local(local, mesh, [
+            Partial() if dim in batch else Replicate()
+            for dim in range(mesh.ndim)], local.shape).redistribute(
+                mesh, whole)
+
+    # aux load-balancing loss (Switch-style), from the global means
+    probs = torch.softmax(logits.to_local().reshape(t_loc, e), dim=-1)
+    me = total(probs.sum(dim=0)) / t
+    assigned = F.one_hot(topi, e).float().sum(1)                  # (T, E)
+    ce = total(assigned.sum(dim=0)) / t / k
+    aux = e * torch.sum(me * ce)
+
+    flat_e = topi.reshape(-1)                                     # (T·K,)
+    flat_gate = gates.reshape(-1)
+    flat_tok = torch.arange(t_loc, device=xf.device).repeat_interleave(k)
+    onehot = F.one_hot(flat_e, e)                                 # (T·K, E)
+    # the counts of the batch shards before this one offset its positions
+    counts = from_local(onehot.sum(dim=0)[None], mesh, x_target, (
+        math.prod(mesh.size(dim) for dim in batch), e))
+    counts = counts.redistribute(mesh, whole).to_local()
+    keep, pos_c = _slots(onehot, flat_e, capacity, offset=counts[
+        :_block_index(coord, batch, mesh)].sum(dim=0))
+    mine = keep & (flat_e >= e0) & (flat_e < e0 + e_loc)
+    e_c = torch.clamp(flat_e - e0, 0, e_loc - 1)
+
+    # dispatch: this device's kept choices for its experts; the others add
+    # zeros, so the accumulating scatter is exact in any order
+    contrib = xf[flat_tok] * mine[:, None].to(x_loc.dtype)
+    buf = torch.zeros((e_loc, capacity, d), dtype=x_loc.dtype,
+                      device=xf.device)
+    buf.index_put_((e_c, pos_c), contrib, accumulate=True)
+    expert = [Shard(0) if dim in ep else Replicate()
+              for dim in range(mesh.ndim)]
+    buf = from_local(buf, mesh, [Partial() if dim in batch else p
+                                 for dim, p in enumerate(expert)],
+                     (e, capacity, d))
+    at_slots = [Shard(1) if dim in slots else p
+                for dim, p in enumerate(expert)]
+    buf = buf.redistribute(mesh, at_slots).to_local()
+
+    def weight(w):
+        """The local shard of an expert weight, its gradient a partial sum
+        over the dims that split the slots."""
+        w = w.redistribute(mesh, [p if dim in split else Replicate()
+                                  for dim, p in enumerate(w.placements)])
+        return w.to_local(grad_placements=[
+            Partial() if dim in slots else p
+            for dim, p in enumerate(w.placements)])
+
+    h = F.silu(torch.bmm(buf, weight(moe.wi_gate)))
+    h = h * torch.bmm(buf, weight(moe.wi_up))
+    y = torch.bmm(h, weight(moe.wo))                   # (E_loc, C_loc, d)
+    y = from_local(y, mesh, [Partial() if dim in split and dim not in ep
+                             else p for dim, p in enumerate(at_slots)],
+                   (e, capacity, d))
+    gathered = [Replicate() if dim in batch else p
+                for dim, p in enumerate(y.placements)]
+    # the gradient of d_ff shards' partial sums is each shard's whole; of
+    # the rows each device picks for its own tokens, a partial sum
+    y = y.redistribute(mesh, gathered).to_local(grad_placements=[
+        Partial() if dim in batch else Replicate() if p.is_partial() else p
+        for dim, p in enumerate(gathered)])
+
+    # combine: each choice's row is held by the devices of its expert; the
+    # K choices are summed over them, then added in order, as unsharded
+    yk = y[e_c, pos_c] * (flat_gate * mine).to(x_loc.dtype)[:, None]
+    yk = from_local(yk.reshape(t_loc, k, d), mesh, per_token, (t, k, d))
+    yk = yk.redistribute(mesh, x_target).to_local()
+    out = torch.zeros((t_loc, d), dtype=x_loc.dtype, device=xf.device)
+    for j in range(k):
+        out = out + yk[:, j]
+    return from_local(out.reshape(b_loc, s, d), mesh, x_target,
+                      x.shape), aux

@@ -132,7 +132,10 @@ class LMModel(nn.Module):
         if self.cfg.max_position_embeddings:
             pos = torch.clamp(positions,
                               max=self.cfg.max_position_embeddings - 1)
-            x = x + self.pos_embed[pos]
+            dtensor = L.dtensor_type()
+            if dtensor is not None and isinstance(tokens, dtensor):
+                pos = L.shard_like(pos, tokens)
+            x = x + L.embed_lookup(self.pos_embed, pos)
         return x
 
     def _logits(self, x):
@@ -230,10 +233,9 @@ def init_cache(cfg, batch: int, max_len: int, *, enc_len: int = 0,
 
 def fill_cross_cache(cfg, model, cache, enc_out):
     """Per-layer cross-attention K/V from encoder outputs, into the cache."""
-    b, t, _ = enc_out.shape
     for lp, cl in zip(model.layers, cache):
-        k = (enc_out @ lp.cross.wk).reshape(b, t, cfg.n_kv_heads, cfg.d_head)
-        v = (enc_out @ lp.cross.wv).reshape(b, t, cfg.n_kv_heads, cfg.d_head)
+        k = L.split_heads(enc_out @ lp.cross.wk, cfg.n_kv_heads, cfg.d_head)
+        v = L.split_heads(enc_out @ lp.cross.wv, cfg.n_kv_heads, cfg.d_head)
         cl["cross_k"] = k.to(cl["cross_k"].dtype)
         cl["cross_v"] = v.to(cl["cross_v"].dtype)
     return cache
@@ -274,10 +276,9 @@ def _decoder_layer_train(cfg, lp, x, aux, positions, enc_out):
 
 
 def _project_qkv(cfg, attn, h, positions):
-    b, s, _ = h.shape
-    q = (h @ attn.wq).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (h @ attn.wk).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (h @ attn.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = L.split_heads(h @ attn.wq, cfg.n_heads, cfg.d_head)
+    k = L.split_heads(h @ attn.wk, cfg.n_kv_heads, cfg.d_head)
+    v = L.split_heads(h @ attn.wv, cfg.n_kv_heads, cfg.d_head)
     if cfg.rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -294,11 +295,34 @@ def _windowed_insert(cfg, lp, cache_layer, k_new, v_new, index, positions):
     return cache_layer
 
 
+def _ring_fill(buf, slots, new):
+    """``buf[:, slots] = new`` in place (the windowed prefill's ring fill;
+    ``slots`` a plain tensor).  On a DTensor buffer it runs on each
+    device's shards: ``new`` (a plain tensor counts as replicated) is
+    brought to the buffer's placements, whose ring dim, which the fill
+    writes across, is not sharded."""
+    dtensor = L.dtensor_type()
+    if dtensor is None or not isinstance(buf, dtensor):
+        buf[:, slots] = new.to(buf.dtype)
+        return buf
+    from torch.distributed.tensor import Replicate
+    mesh = buf.device_mesh
+    if any(p.is_shard(1) for p in buf.placements):
+        raise NotImplementedError(
+            f"ring fill of a buffer sharded along its ring: "
+            f"{buf.placements}")
+    if not isinstance(new, dtensor):
+        new = L.from_local(new, mesh, [Replicate()] * mesh.ndim, new.shape)
+    buf.to_local()[:, slots] = new.redistribute(
+        mesh, buf.placements).to_local().to(buf.dtype)
+    return buf
+
+
 def _attn_block(cfg, lp, x, *, positions, mode, cache_layer, index,
                 window=None):
     h = L.apply_norm(cfg, lp, x, "ln_attn")
-    b, s, _ = h.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = h.shape[1]
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
     if mode == "prefill" and cfg.attn_window and cache_layer is not None:
         # windowed prefill: full pass, then ring-fill the cache with the
         # trailing `window` tokens' K/V.
@@ -310,7 +334,7 @@ def _attn_block(cfg, lp, x, *, positions, mode, cache_layer, index,
         else:
             out = L.naive_attention(q, k, v, causal=True,
                                     window=cfg.attn_window)
-        out = out.reshape(b, s, hq * dh) @ lp.attn.wo
+        out = L.merge_heads(out) @ lp.attn.wo
         w = cache_layer["k"].shape[1]
         tail = min(w, s)
         # ring invariant: position p lives at slot p % w (so decode's
@@ -318,10 +342,10 @@ def _attn_block(cfg, lp, x, *, positions, mode, cache_layer, index,
         slots = positions[0, s - tail:] % w
         for name, new in (("k", k), ("v", v)):
             cache_layer[name].zero_()
-            cache_layer[name][:, slots] = new[:, s - tail:].to(
-                cache_layer[name].dtype)
+            _ring_fill(cache_layer[name], slots, new[:, s - tail:])
         cache_layer["pos"].fill_(-1)
-        cache_layer["pos"][:, slots] = positions[:, s - tail:].to(torch.int32)
+        _ring_fill(cache_layer["pos"], slots,
+                   positions[:, s - tail:].to(torch.int32))
         return out, cache_layer
     if mode == "decode" and cfg.attn_window and cache_layer is not None:
         # sliding-window ring cache: project, rope at absolute pos, ring insert
@@ -340,7 +364,7 @@ def _attn_block(cfg, lp, x, *, positions, mode, cache_layer, index,
         v_cache = cache_layer["v"]
         out = torch.einsum("bhgqk,bkhd->bqhgd",
                            probs.to(v_cache.dtype).float(), v_cache.float())
-        out = out.to(x.dtype).reshape(b, s, hq * dh) @ lp.attn.wo
+        out = L.merge_heads(out.to(x.dtype)) @ lp.attn.wo
         return out, cache_layer
     return lp.attn(h, positions=positions, causal=True, cache=cache_layer,
                    cache_index=index, window=window)
@@ -374,11 +398,10 @@ def _decoder_layer(cfg, lp, x, aux, *, positions, mode, cache_layer=None,
         if cache_layer is not None:
             kv = (cache_layer["cross_k"], cache_layer["cross_v"])
         else:
-            b = enc_out.shape[0]
-            kv = ((enc_out @ lp.cross.wk).reshape(
-                      b, -1, cfg.n_kv_heads, cfg.d_head),
-                  (enc_out @ lp.cross.wv).reshape(
-                      b, -1, cfg.n_kv_heads, cfg.d_head))
+            kv = (L.split_heads(enc_out @ lp.cross.wk, cfg.n_kv_heads,
+                                cfg.d_head),
+                  L.split_heads(enc_out @ lp.cross.wv, cfg.n_kv_heads,
+                                cfg.d_head))
         c_out, _ = lp.cross(h, positions=positions, causal=False,
                             kv_override=kv, window=0)
         x = x + c_out

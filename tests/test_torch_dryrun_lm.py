@@ -33,7 +33,8 @@ from repro_torch.launch import mesh as MESH
 
 MESHES = {"4x2": ((4, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
-          "1x1": ((1, 1), ("data", "model"))}
+          "1x1": ((1, 1), ("data", "model")),
+          "2x4": ((2, 4), ("data", "model"))}
 CELLS = [("olmo_1b", "train_4k"), ("mamba2_370m", "long_500k")]
 # the JAX record's keys (src/repro/launch/dryrun.py:166-216)
 RECORD_KEYS = ("arch", "shape", "mesh", "multi_pod", "status", "tag", "kind",
@@ -61,8 +62,9 @@ def _mesh(name):
 
 def _jax_argument_bytes(arch, shape, mesh_name, overrides) -> int:
     """The local shard bytes of every input leaf of JAX's cell
-    (``_lm_cell``: params, optimizer state and batch for train; params,
-    cache, token and the int32 index for decode) under JAX's own specs."""
+    (``_lm_cell``: params, optimizer state and batch for train; params and
+    the batch without labels for prefill; params, cache, token and the
+    int32 index for decode) under JAX's own specs."""
     cfg = dataclasses.replace(jax_get_config(arch), **overrides)
     shape_cfg = JAX_SHAPES[shape]
     dims, axes = MESHES[mesh_name]
@@ -104,6 +106,15 @@ def _jax_argument_bytes(arch, shape, mesh_name, overrides) -> int:
             total += shard_bytes(leaf, rules.batch_spec(leaf.shape))
         return total
     params = JSP.abstract_params(cfg)
+    if shape_cfg.kind == "prefill":
+        batch = JSP.train_batch_specs(cfg, shape_cfg)
+        batch.pop("labels")
+        for path, leaf in leaves(params):
+            total += shard_bytes(leaf, rules.param_spec(key(path),
+                                                        leaf.shape))
+        for _, leaf in leaves(batch):
+            total += shard_bytes(leaf, rules.batch_spec(leaf.shape))
+        return total
     cache, token = JSP.decode_inputs_specs(cfg, shape_cfg)
     for path, leaf in leaves(params):
         total += shard_bytes(leaf, rules.param_spec(key(path), leaf.shape))
