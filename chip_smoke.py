@@ -218,7 +218,23 @@ Phases, each printing one JSON line:
    parameters within 1e-5 of the clean run's, the watchdog's median step
    and stragglers; (d) ``python -m
    repro_torch.launch.train --arch olmo_1b --smoke --steps 20`` as a
-   subprocess, its summary line and exit code 0;
+   subprocess, its summary line and exit code 0; (e) training over a mesh
+   (``launch.train.build(mesh=)``) on a one-rank NCCL group: olmo_1b at
+   full width in bf16 on ``make_local_mesh()``, (1, 1, 1), three steps from
+   seed 0, then three steps of the one-device port from the same seed
+   (the memory freed between): step ms (CUDA events, median) of each,
+   peak memory, one more step of each under torch.profiler (kernels,
+   device busy ms, idle share),
+   every loss and grad_norm within the bf16 tolerance of (b), 5e-2
+   relative, and every parameter after the third step within 5e-2 of its
+   leaf's largest magnitude, with whether they were bit for bit (not
+   required: on a one-position mesh DTensor still picks its own strategy
+   for some backward products, the gradient of each attention ``wo``
+   arriving as ``Shard(0)`` over size-1 dimensions, so those products run
+   on another operand layout and round otherwise in the last bits); at smoke
+   width, a checkpoint saved from the mesh restored into a one-device
+   model, parameters and moments bit for bit; the group torn down before
+   the dist phase;
 14. dist — the mesh runtime and the W8A8 path, single controller on the
    card (no Pallas kernel on these paths: K1/K2/K3 stay at 0): (a) GPipe
    (``repro_torch.runtime.pipeline``), olmo_1b's 16 layers at full width
@@ -429,7 +445,11 @@ LM_RUNS = 5
 # relative, each leaf's gradient at cosine >= 0.99; (c) the demo of
 # examples.train_lm, TRAIN_DEMO_STEPS steps clean and with the injected
 # fault, final parameters within JAX's 1e-5 (tests/test_training_substrate
-# .py:96-100); (d) the launcher's CLI as a subprocess.
+# .py:96-100); (d) the launcher's CLI as a subprocess; (e) olmo_1b at full
+# width trained TRAIN_MESH_STEPS steps on a one-rank NCCL mesh (1, 1, 1) and
+# as many on one device, within (b)'s bf16 tolerance (DTensor's own
+# strategies round some backward products otherwise), and a smoke-width
+# checkpoint from the mesh restored on one device, bit for bit.
 TRAIN_SMOKE_DATA = dict(seq_len=64, global_batch=8)
 # 1e-3 from step 1 (no warmup): the default schedule's 6e-6 at step 1 moves
 # no parameter by as much as the 1e-4 bound
@@ -447,6 +467,7 @@ TRAIN_LOOP_TOL = 1e-5
 TRAIN_DEMO_STEPS = 100
 TRAIN_CLI_STEPS = 20
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+TRAIN_MESH_STEPS = 3
 # The dist phase (repro_torch.runtime.pipeline, .compression, repro_torch.
 # quant; no Pallas kernel on these paths): (a) GPipe, olmo_1b's 16 layers as
 # DIST_STAGES stages on a "pod" axis of as many positions on the card,
@@ -3113,9 +3134,142 @@ def _train_cli() -> dict:
             "summary": lines[-1], "wall_s": wall}
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _train_steps(dev, built, n: int) -> tuple:
+    """``n`` steps of ``built`` = (model, opt, step, stream): per step its
+    ms (CUDA events), loss and grad_norm; returns (steps, model, opt)."""
+    model, opt, step, stream = built
+    steps = []
+    for _ in range(n):
+        batch = batch_to_device(next(stream), dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, opt, metrics = step(model, opt, batch)
+        end.record()
+        end.synchronize()
+        steps.append({"ms": start.elapsed_time(end),
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"])})
+    return steps, model, opt
+
+
+def _whole(tree: dict) -> dict:
+    """Each tensor of a dict, a DTensor gathered whole, on the CPU."""
+    return {n: (t.full_tensor() if hasattr(t, "full_tensor") else t)
+            .detach().cpu() for n, t in tree.items()}
+
+
+def _bit_equal(got: dict, want: dict, what: str) -> float:
+    """Every tensor of ``got`` equal bit for bit to ``want``'s; returns the
+    largest |difference| (0.0)."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        worst = max(worst, float((g.float() - w.float()).abs().max()))
+        check(torch.equal(g, w), f"train mesh {what} {name}: not bit for "
+              f"bit (max |diff| {worst})")
+    return worst
+
+
+def _train_mesh(dev) -> dict:
+    """(e): a one-rank NCCL group; olmo_1b at full width on
+    ``make_local_mesh()`` (1, 1, 1) against one device, and a smoke-width
+    checkpoint from the mesh restored on one device."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    cfg = get_config(TRAIN_FULL)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = MESH.make_local_mesh(dev)
+        _lm_free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        built = TRAIN.build(cfg, mesh=mesh)
+        check(all(isinstance(p, DTensor) for p in built[0].parameters()),
+              "train mesh: a parameter is not a DTensor")
+        on_mesh, model, opt = _train_steps(dev, built, TRAIN_MESH_STEPS)
+        mesh_params = _whole(dict(model.named_parameters()))
+        peak_mesh = torch.cuda.max_memory_allocated(dev)
+        profiled = {"mesh": _train_profile(
+            dev, model, opt, built[2], built[3],
+            statistics.median(s["ms"] for s in on_mesh))}
+        del built, model, opt
+        _lm_free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        built = TRAIN.build(cfg, device=dev)
+        one, model, opt = _train_steps(dev, built, TRAIN_MESH_STEPS)
+        one_params = _whole(dict(model.named_parameters()))
+        peak_one = torch.cuda.max_memory_allocated(dev)
+        profiled["one_device"] = _train_profile(
+            dev, model, opt, built[2], built[3],
+            statistics.median(s["ms"] for s in one))
+        del built, model, opt
+        _lm_free(dev)
+        rel = {}
+        for key in ("loss", "grad_norm"):
+            got, want = ([s[key] for s in run] for run in (on_mesh, one))
+            rel[key] = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+            check(rel[key] <= TRAIN_BF16_REL_TOL, f"train mesh {key}: {got} "
+                  f"on the mesh, {want} on one device")
+        params_rel = _leaves_close(mesh_params, one_params,
+                                   TRAIN_BF16_REL_TOL, "mesh parameter")
+        bit_equal = {
+            "loss_grad_norm": [[a[k] == b[k] for k in ("loss", "grad_norm")]
+                               for a, b in zip(on_mesh, one)],
+            "params": all(torch.equal(mesh_params[n], one_params[n])
+                          for n in one_params)}
+        params_diff = max(float((mesh_params[n].float()
+                                 - one_params[n].float()).abs().max())
+                          for n in one_params)
+        del mesh_params, one_params
+
+        # a smoke-width checkpoint from the mesh, restored on one device
+        smoke = smoke_config(TRAIN_FULL)
+        model, opt, step, stream = TRAIN.build(smoke, mesh=mesh)
+        _, model, opt = _train_steps(dev, (model, opt, step, stream), 1)
+        ckpt = TRAIN_DIR / "mesh_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        save_checkpoint(str(ckpt), 1, {"params": model.state_dict(),
+                                       "opt": opt})
+        one_model, one_opt, _, _ = TRAIN.build(smoke, device=dev)
+        tree, _ = restore_checkpoint(str(ckpt), {
+            "params": one_model.state_dict(), "opt": one_opt})
+        restored = {"params": _bit_equal(
+            _whole(tree["params"]), _whole(model.state_dict()), "restored")}
+        for key in ("m", "v"):
+            restored[key] = _bit_equal(_whole(tree["opt"][key]),
+                                       _whole(opt[key]), f"restored {key}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    mesh_ms = statistics.median(s["ms"] for s in on_mesh)
+    one_ms = statistics.median(s["ms"] for s in one)
+    return {"arch": TRAIN_FULL, "dtype": cfg.dtype, "backend": "nccl",
+            "world_size": 1, "mesh": dict(mesh.shape),
+            "steps": TRAIN_MESH_STEPS, "mesh_steps": on_mesh,
+            "one_device_steps": one, "mesh_step_ms": mesh_ms,
+            "one_device_step_ms": one_ms, "mesh_over_one_device": mesh_ms
+            / one_ms, "peak_allocated_bytes": {"mesh": peak_mesh,
+                                               "one_device": peak_one},
+            "profiled": profiled,
+            "rel_err": rel, "params_max_abs_diff": params_diff,
+            "params_max_rel_err": params_rel, "bit_equal": bit_equal,
+            "tolerance": TRAIN_BF16_REL_TOL,
+            "smoke_checkpoint_max_abs_diff": restored,
+            "smoke_checkpoint_tolerance": "bit for bit"}
+
+
 def phase_train(dev, env: dict, remat_ms: bool = False) -> dict:
     """The LM training path (``repro_torch.launch.train``,
-    ``repro_torch.examples.train_lm``) on the card: (a)–(d) of ``TRAIN_*``
+    ``repro_torch.examples.train_lm``) on the card: (a)–(e) of ``TRAIN_*``
     above, with the K1/K2/K3 counters set to 0 just before and read just
     after (the path launches none of them).  ``remat_ms`` adds (b)'s
     diagnostic steps under the other remat settings."""
@@ -3134,6 +3288,8 @@ def phase_train(dev, env: dict, remat_ms: bool = False) -> dict:
     out["loop"] = _train_loop()
     _lm_free(dev)
     out["cli"] = _train_cli()
+    _lm_free(dev)
+    out["mesh"] = _train_mesh(dev)
     launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
                 "fused_ntt_tile": K3.launches}
     check(not any(launches.values()), f"train: kernel launches {launches}")

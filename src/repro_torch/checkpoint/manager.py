@@ -10,6 +10,18 @@ leaves are stored as float32 under ``<path>@bf16``.  The manifest records
 the step, a SHA-256 of the payload, each leaf's shape and dtype, and
 arbitrary JSON extra state (the data stream's cursor).  A checkpoint is
 written under ``step_<N>.tmp`` and published with ``os.replace``.
+
+Over a mesh (JAX's elastic restore: a checkpoint reshards onto another
+mesh or one device).  A save gathers each DTensor leaf whole on every rank
+(``full_tensor()``, a collective every rank enters), and rank 0 alone
+writes it, in the layout above and under the leaf names of a one-device
+checkpoint, and rotates; a barrier then publishes it to every rank.  So a
+checkpoint from a mesh, one from one device and one from the JAX package
+each read into the others.  A restore reads the whole arrays on every rank
+(each checks the SHA-256), and each DTensor leaf of the ``like`` tree
+keeps its own slice at its placements, on whatever mesh it lies (JAX's
+``device_put`` under the new mesh's shardings).  A DTensor that reached
+the writer un-gathered raises: a shard is never written as the leaf.
 """
 from __future__ import annotations
 
@@ -22,7 +34,23 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.device import dtensor_type, process_group
+
 BF16 = "@bf16"
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process outside any."""
+    dist = process_group()
+    return dist is None or dist.get_rank() == 0
+
+
+def _publish():
+    """A barrier after rank 0's write, so every rank sees it."""
+    dist = process_group()
+    if dist is not None:
+        dist.barrier()
 
 
 def _paths(tree, prefix=""):
@@ -41,7 +69,12 @@ def _paths(tree, prefix=""):
 def _host(leaf) -> tuple[np.ndarray, bool]:
     """(a host copy of the leaf as numpy, whether it was bf16): bf16 as
     float32, since numpy has no bf16.  Always a copy, so a tensor updated
-    after the save changes nothing written."""
+    after the save changes nothing written.  A DTensor raises: its local
+    tensor is a shard, and :func:`_flatten` gathers it first."""
+    dtensor = dtensor_type()
+    if dtensor is not None and isinstance(leaf, dtensor):
+        raise TypeError("a DTensor leaf reached the checkpoint writer "
+                        "un-gathered; its local tensor is one shard")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         bf16 = t.dtype == torch.bfloat16
@@ -50,16 +83,31 @@ def _host(leaf) -> tuple[np.ndarray, bool]:
 
 
 def _flatten(tree) -> dict[str, np.ndarray]:
+    """Path → host array of every leaf, each DTensor gathered whole first
+    (a collective: every rank of its mesh must flatten the same tree)."""
+    dtensor = dtensor_type()
     flat = {}
     for key, leaf in _paths(tree):
+        if dtensor is not None and isinstance(leaf, dtensor):
+            leaf = leaf.full_tensor()
         arr, bf16 = _host(leaf)
         flat[key + BF16 if bf16 else key] = arr
     return flat
 
 
 def _like_leaf(leaf, arr: np.ndarray):
-    """``arr`` in the form of ``leaf``: a tensor of its dtype on its device,
-    a numpy array of its dtype, else the array itself."""
+    """``arr`` in the form of ``leaf``: a DTensor of its dtype whose local
+    tensor is this rank's slice at its placements, a tensor of its dtype on
+    its device, a numpy array of its dtype, else the array itself."""
+    dtensor = dtensor_type()
+    if dtensor is not None and isinstance(leaf, dtensor):
+        from torch.distributed.tensor import distribute_tensor
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"checkpoint leaf of shape {arr.shape}, the "
+                             f"DTensor it restores is {tuple(leaf.shape)}")
+        whole = torch.from_numpy(arr).to(leaf.to_local().device, leaf.dtype)
+        return distribute_tensor(whole, leaf.device_mesh, leaf.placements,
+                                 src_data_rank=None)
     if isinstance(leaf, torch.Tensor):
         return torch.from_numpy(arr).to(leaf.device, leaf.dtype)
     if isinstance(leaf, np.ndarray):
@@ -109,8 +157,15 @@ def _write(directory: str, step: int, flat: dict[str, np.ndarray],
 
 
 def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None):
-    """Write ``tree`` as ``<directory>/step_<step>``; returns its path."""
-    return _write(directory, step, _flatten(tree), extra)
+    """Write ``tree`` as ``<directory>/step_<step>``; returns its path.  In
+    a process group every rank calls it (DTensors are gathered), rank 0
+    writes, and every rank returns after the write."""
+    flat = _flatten(tree)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if _writes():
+        path = _write(directory, step, flat, extra)
+    _publish()
+    return path
 
 
 def _steps(directory: str) -> list[int]:
@@ -150,7 +205,10 @@ def restore_checkpoint(directory: str, like, step: int | None = None):
 
 class CheckpointManager:
     """Rotation (the ``keep`` latest) + async save on one writer thread +
-    restore-latest."""
+    restore-latest.  In a process group every rank calls ``save`` (each
+    DTensor is gathered on every rank); rank 0 alone writes and rotates,
+    and the save returns on every rank once the write is published, so an
+    async save waits for its write there."""
 
     def __init__(self, directory: str, *, keep: int = 3,
                  async_save: bool = True):
@@ -164,7 +222,12 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: dict | None = None):
         # copied to host numpy here, before the writer thread sees it
         flat = _flatten(tree)
-        if self._pool is None:
+        if process_group() is not None:
+            if _writes():
+                self.wait()
+                self._save_and_rotate(step, flat, extra)
+            _publish()
+        elif self._pool is None:
             self._save_and_rotate(step, flat, extra)
         else:
             self.wait()

@@ -6,7 +6,23 @@ CUDA device, a request for the default device raises.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
+
+
+def dtensor_type():
+    """DTensor's class, or None while ``torch.distributed.tensor`` is not
+    imported (then no tensor is one)."""
+    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                   None)
+
+
+def process_group():
+    """``torch.distributed`` while a process group is initialised, else
+    None."""
+    import torch.distributed as dist
+    return dist if dist.is_available() and dist.is_initialized() else None
 
 
 def _cuda_count() -> int:

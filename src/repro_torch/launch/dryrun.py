@@ -457,17 +457,29 @@ class _Placer:
     """Makes the cell's inputs DTensors of one mesh: each meta stand-in
     becomes a DTensor of the same global shape whose local shard (a fake
     tensor, under the cell's ``FakeTensorMode``) is rank 0's under the
-    spec; ``bytes`` sums the local shards."""
+    spec.  :meth:`read_bytes` sums the local shards that the step read, as
+    JAX's jit counts only the arguments it keeps (``kept_var_idx``), plus
+    ``scalar_bytes`` for inputs that are Python numbers here (the decode
+    index, an int32 argument in JAX).  Those always count: no census sees
+    a Python number read, where JAX drops an index its step does not read
+    (mamba2_370m's decode, 4 bytes)."""
 
     def __init__(self, mesh: MESH.Mesh, dmesh):
         self.mesh, self.dmesh = mesh, dmesh
-        self.bytes = 0
+        self.locals: list = []
+        self.scalar_bytes = 0
+
+    def read_bytes(self, census) -> int:
+        """The bytes of the local shards some op of ``census`` read."""
+        return self.scalar_bytes + sum(
+            t.numel() * t.element_size() for t in self.locals
+            if GC.storage_key(t) in census.read)
 
     def tensor(self, t, spec):
         from torch.distributed.tensor import DTensor
         local = torch.empty(SH.local_shape(t.shape, spec, self.mesh),
                             dtype=t.dtype)
-        self.bytes += local.numel() * local.element_size()
+        self.locals.append(local)
         return DTensor.from_local(local, self.dmesh,
                                   SH.placements(spec, self.dmesh),
                                   run_check=False, shape=t.shape,
@@ -524,11 +536,11 @@ def _local_bytes(tree) -> int:
 def _lm_cell(arch: str, shape: str, mesh: MESH.Mesh, rules: SH.ShardingRules,
              placer: _Placer, overrides: dict | None = None):
     """The cell's step as ``run()`` over DTensor inputs that ``placer`` made
-    (their bytes in ``placer.bytes``), and the record's extra keys, as
+    (the bytes it read in ``placer.read_bytes``), and the record's extra keys, as
     JAX's ``_lm_cell`` builds its lowered step.  train: the AdamW step on
-    the abstract train state, the moments and metrics then laid out as
-    JAX's ``out_shardings`` say (the moments by their specs, the metrics
-    replicated); prefill: ``make_prefill`` with ``max_len = seq_len +
+    the abstract train state, laid out as JAX's ``out_shardings`` say (the
+    moments keep their specs' placements through ``adamw_update``, the
+    metrics are then replicated); prefill: ``make_prefill`` with ``max_len = seq_len +
     prefix``, its cache allocated as shards; decode: ``make_decode_step``
     on the cache, the token and the last position of the cache (JAX's
     int32 index argument counts 4 bytes)."""
@@ -552,9 +564,6 @@ def _lm_cell(arch: str, shape: str, mesh: MESH.Mesh, rules: SH.ShardingRules,
 
         def run():
             model_, opt_, metrics = step(model, opt, batch)
-            for key in ("m", "v"):
-                opt_[key] = {n: t.redistribute(dmesh, SH.placements(
-                    ospecs[key][n], dmesh)) for n, t in opt_[key].items()}
             metrics = {k: v.redistribute(dmesh, replicated)
                        if isinstance(v, DTensor) else v
                        for k, v in metrics.items()}
@@ -582,7 +591,7 @@ def _lm_cell(arch: str, shape: str, mesh: MESH.Mesh, rules: SH.ShardingRules,
         cache = placer.cache(cache, rules.tree_cache_specs(cache))
         token = placer.tensor(token, rules.tree_batch_specs(
             {"tokens": token})["tokens"])
-        placer.bytes += 4
+        placer.scalar_bytes += 4
         decode = ST.make_decode_step(cfg)
         index = shape_cfg.seq_len - 1
 
@@ -599,7 +608,8 @@ def run_lm_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 overrides: dict | None = None, tag: str = "",
                 mesh: MESH.Mesh | None = None) -> dict:
     """Plan one LM cell on a production mesh (or ``mesh``) and return JAX's
-    record: ``memory`` (argument bytes = the local shards of every input;
+    record: ``memory`` (argument bytes = the local shards of every input
+    the step reads, as JAX's jit drops the arguments it never reads;
     output = those of the step's results; temp = the peak of live bytes
     the step made beyond its inputs; generated code 0), ``bytes_per_device``,
     ``cost_raw`` and ``cost_corrected`` (the same numbers: the census walks
@@ -635,15 +645,16 @@ def run_lm_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 out = run()
             out_bytes = _local_bytes(out)
             del out
+            arg_bytes = placer.read_bytes(census)
         total = census.aten()
         coll = GC.collective_bytes(census)
         record["memory"] = {
-            "argument_size_in_bytes": placer.bytes,
+            "argument_size_in_bytes": arg_bytes,
             "output_size_in_bytes": out_bytes,
             "temp_size_in_bytes": census.peak,
             "generated_code_size_in_bytes": 0}
         record["memory_note"] = GENERATED_CODE_NOTE
-        record["bytes_per_device"] = placer.bytes + census.peak
+        record["bytes_per_device"] = arg_bytes + census.peak
         flops = total["tensor_ops"] + total["cuda_core_ops"] + \
             total["bf16_ops"]
         record["cost_raw"] = {"flops": float(flops),
@@ -692,6 +703,36 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool | None = None,
                        overrides=overrides, tag=tag)
 
 
+# the mesh of a cell's whole work on one device, the census its sharded
+# plans are held to
+ONE_MESH = MESH.make_mesh((1, 1), ("data", "model"), [torch.device("meta")])
+
+
+def redundancy(out_dir: Path) -> dict:
+    """Per LM cell with a 1x1 record (``--mesh one``) in ``out_dir``: for
+    each production mesh recorded, per-device flops × devices over the 1x1
+    plan's flops (1.0 when the devices split the work without repeating
+    any of it), with the flops of both."""
+    out = {}
+    for one in sorted(out_dir.glob("*__one.json")):
+        base = json.loads(one.read_text())
+        if base["status"] != "ok":
+            continue
+        cell = {"one_flops": base["cost_raw"]["flops"]}
+        for tag in ("single", "multi"):
+            path = out_dir / one.name.replace("__one.json", f"__{tag}.json")
+            if not path.exists():
+                continue
+            rec = json.loads(path.read_text())
+            if rec["status"] != "ok":
+                continue
+            flops, n = rec["cost_raw"]["flops"], rec["roofline"]["n_chips"]
+            cell[tag] = {"flops_per_device": flops,
+                         "ratio": flops * n / cell["one_flops"]}
+        out[f"{base['arch']}/{base['shape']}"] = cell
+    return out
+
+
 def _parse_overrides(items: list) -> dict:
     """``k=v`` pairs as JAX's CLI parses them: true/false, digits, else a
     string."""
@@ -737,10 +778,16 @@ def main(argv=None):
                          f"list or 'all' (each arch takes the shapes of its "
                          f"kind)")
     ap.add_argument("--mesh", default=None,
-                    choices=["single", "multi", "both"],
+                    choices=["single", "multi", "both", "one"],
                     help="production mesh: 16x16 (single), 2x16x16 (multi) "
                          "or both; default single for the LM cells, the "
-                         "card alone for the crypto cells")
+                         "card alone for the crypto cells; 'one' plans the "
+                         "LM cells on a 1x1 mesh, the whole work on one "
+                         "device (records __one, read by --redundancy)")
+    ap.add_argument("--redundancy", default=None, metavar="DIR",
+                    help="print, from the records in DIR, each LM cell's "
+                         "per-device flops x devices over its 1x1 plan's "
+                         "flops, and run no cell")
     ap.add_argument("--accum", default="fp32_mantissa",
                     choices=["fp32_mantissa", "int32_native"])
     ap.add_argument("--reduction", default="eager", choices=["eager", "lazy"])
@@ -757,6 +804,9 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help=f"record directory (default {OUT_DIR})")
     args = ap.parse_args(argv)
+    if args.redundancy:
+        print(json.dumps(redundancy(Path(args.redundancy))), flush=True)
+        return
 
     archs = (sorted(ARCHS) + sorted(WORKLOADS) if args.arch == "all"
              else args.arch.split(","))
@@ -774,7 +824,7 @@ def main(argv=None):
         resolve_device(args.device)     # no CUDA and no --device cpu: raise
     overrides = _parse_overrides(args.override) or None
     meshes = {None: [None], "single": [False], "multi": [True],
-              "both": [False, True]}[args.mesh]
+              "both": [False, True], "one": ["one"]}[args.mesh]
     out_dir = Path(args.out) if args.out else OUT_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     failed = 0
@@ -799,6 +849,10 @@ def main(argv=None):
                                "trace": traceback.format_exc()[-2000:]}
                     mesh_tag = {None: "1", False: "single",
                                 True: "multi"}[multi]
+                elif multi == "one":
+                    rec = run_lm_cell(arch, shape, overrides=overrides,
+                                      tag=args.tag, mesh=ONE_MESH)
+                    mesh_tag = "one"
                 else:
                     rec = run_cell(arch, shape, multi_pod=bool(multi),
                                    overrides=overrides, tag=args.tag)

@@ -211,6 +211,12 @@ def _tensors(obj):
             yield from _tensors(o)
 
 
+def storage_key(t) -> int:
+    """The identity of ``t``'s storage, shared by its views (a fake
+    tensor's too)."""
+    return t.untyped_storage()._cdata
+
+
 def _nbytes(obj) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(obj))
 
@@ -442,7 +448,10 @@ class ShardedOpCensus(OpCensus):
     shards), as XLA's post-partition ``cost_analysis()`` prices one device's
     program, and ``collectives`` holds (kind, result bytes) of every
     collective.  Ops on plain tensors (positions, masks) are priced as they
-    are.  Memory: every tensor an op creates (not a view, not an input
+    are.  ``read`` holds the storages (:func:`storage_key`) of the tensors
+    that some op took as an argument, so a caller can tell which of its
+    inputs the program read, through a view or not (JAX's jit drops the
+    arguments it never reads).  Memory: every tensor an op creates (not a view, not an input
     returned in place) counts as live until it is freed; ``peak`` is the
     most live at once, beyond whatever existed before the census."""
 
@@ -451,6 +460,7 @@ class ShardedOpCensus(OpCensus):
         from torch.distributed.tensor import DTensor
         self._dtensor = DTensor
         self.collectives: list = []
+        self.read: set = set()
         self.propagating = 0
         self.live = self.peak = 0
         self._quiet = None
@@ -492,6 +502,8 @@ class ShardedOpCensus(OpCensus):
         out = func(*args, **kwargs)
         if self.propagating:
             return out
+        self.read.update(storage_key(t) for t in _tensors(
+            [args, list(kwargs.values())]))
         kind = collective_kind(func)
         if kind is None:
             c = aten_cost(func, args, kwargs, out)

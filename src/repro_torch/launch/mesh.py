@@ -84,6 +84,20 @@ def make_local_mesh(device=None) -> Mesh:
     return make_mesh((1, len(devs), 1), ("pod", "data", "model"), devs)
 
 
+def make_world_mesh() -> Mesh:
+    """``make_local_mesh``'s counterpart over the ranks of the initialised
+    process group: ``(1, world, 1)`` over ``pod``, ``data``, ``model``, one
+    position a rank, as JAX's ``make_local_mesh`` spans every process's
+    devices.  Its entries are ``meta``: a rank addresses only its own
+    device (:func:`repro_torch.launch.train.mesh_device`)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_world_mesh needs an initialised process "
+                           "group")
+    return make_mesh((1, dist.get_world_size(), 1), ("pod", "data", "model"),
+                     [torch.device("meta")])
+
+
 def data_axes(mesh) -> tuple:
     """The batch-sharding axes present in this mesh."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)

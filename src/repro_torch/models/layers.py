@@ -33,13 +33,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import sys
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs import torch_dtype
+from repro_torch.device import dtensor_type
 
 NEG_INF = -1e30
 
@@ -88,12 +88,44 @@ def _whole_rows(x):
                                           for p in x.placements])
 
 
+class _WholeRowsGrad(torch.autograd.Function):
+    """The identity, whose backward reduces a gradient that holds partial
+    sums (Megatron's ``f``: identity forward, all-reduce backward)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _whole_rows(grad)
+
+
+def _whole_rows_grad(out):
+    """A norm's output, whose gradient is reduced where it holds partial
+    sums.  The norm's output feeds products whose weights are sharded over
+    ``model`` by columns (the Q/K/V projections, the MLP's input, the
+    vocabulary head), so the gradient of their input comes back as a
+    partial sum over ``model``.  Left so, it reaches the previous
+    row-parallel product (``wo``), whose input gradient would take a
+    partial-sum operand against a weight sharded by columns: DTensor then
+    gathers the weight, the cheaper move by bytes, and every device runs
+    that product whole.  Reduced here, as Megatron and XLA's partitioner
+    reduce it, each device keeps its shard of the work.  A plain tensor,
+    or one that needs no gradient, is returned as it is."""
+    dtensor = dtensor_type()
+    if (dtensor is None or not isinstance(out, dtensor)
+            or not out.requires_grad):
+        return out
+    return _WholeRowsGrad.apply(out)
+
+
 def rmsnorm(x, weight):
     x = _whole_rows(x)
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + 1e-6)
-    return (out * weight.float()).to(x.dtype)
+    return _whole_rows_grad((out * weight.float()).to(x.dtype))
 
 
 def layernorm(x, weight, bias):
@@ -102,7 +134,7 @@ def layernorm(x, weight, bias):
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)    # jnp.var: population
     out = (xf - mu) * torch.rsqrt(var + 1e-5)
-    return (out * weight.float() + bias.float()).to(x.dtype)
+    return _whole_rows_grad((out * weight.float() + bias.float()).to(x.dtype))
 
 
 def layernorm_np(x):
@@ -111,7 +143,7 @@ def layernorm_np(x):
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)
-    return ((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+    return _whole_rows_grad(((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype))
 
 
 class Norm(nn.Module):
@@ -181,13 +213,6 @@ def update_slice(buf, new, index: int):
     start = min(max(int(index), 0), size - n)
     buf[:, start:start + n] = new.to(buf.dtype)
     return buf
-
-
-def dtensor_type():
-    """DTensor's class, or None while ``torch.distributed.tensor`` is not
-    imported (then no tensor is one)."""
-    return getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
-                   None)
 
 
 def contiguous_stride(shape) -> tuple:
@@ -456,10 +481,31 @@ def blockwise_attention(q, k, v, *, causal: bool, block: int = 1024,
     return out.to(q.dtype)
 
 
+def repeat_kv(k, n_rep: int):
+    """(B, S, Hkv, Dh) -> (B, S, Hkv·n_rep, Dh), each KV head repeated
+    ``n_rep`` times in place (JAX's ``_repeat_kv``).  On a DTensor it runs
+    on each device's shards: a shard of the KV heads is a shard of the
+    repeated heads, and a shard of another dim stays."""
+    if n_rep == 1:
+        return k
+    dtensor = dtensor_type()
+    if dtensor is not None and isinstance(k, dtensor):
+        local = repeat_kv(k.to_local(), n_rep)
+        b, s, h, d = k.shape
+        return from_local(local, k.device_mesh, k.placements,
+                          (b, s, h * n_rep, d))
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
 class Attention(nn.Module):
     """GQA attention (JAX's ``attention_params`` / ``attention_forward``).
-    ``cfg.gqa_repeat_kv`` (a baseline ablation of the TPU dry run) is not
-    read: the grouped form gives the same result."""
+    With ``cfg.gqa_repeat_kv`` (the TPU dry run's baseline ablation) the KV
+    heads are repeated to the query heads' count before attention, as JAX
+    materialises them (:func:`repeat_kv`): the output and the gradients
+    are the grouped form's, and the dry run's record prices the
+    materialised KV."""
 
     def __init__(self, cfg, init: ParamInit, d_model=None):
         super().__init__()
@@ -496,9 +542,12 @@ class Attention(nn.Module):
                 q = apply_rope(q, positions, cfg.rope_theta)
 
         if cache is not None and kv_override is None:
-            # decode / cached path: mask beyond cache_index + s
             k = update_slice(cache["k"], k, cache_index)
             v = update_slice(cache["v"], v, cache_index)
+        if cfg.gqa_repeat_kv:
+            k, v = repeat_kv(k, hq // hkv), repeat_kv(v, hq // hkv)
+        if cache is not None and kv_override is None:
+            # decode / cached path: mask beyond cache_index + s
             out = naive_attention(q, k, v, causal=causal, window=window,
                                   q_offset=cache_index)
         elif s >= cfg.blockwise_attn_threshold:

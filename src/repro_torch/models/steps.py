@@ -146,6 +146,39 @@ def _grads(cfg, model, params: dict, batch: dict):
     return loss.detach(), metrics, dict(zip(params, grads))
 
 
+def _microbatches(batch: dict, accum: int) -> list:
+    """JAX's microbatches of ``batch``: microbatch i holds rows [i·B/accum,
+    (i+1)·B/accum) of every entry.  On a DTensor batch that slice does not
+    follow the data shards, so the entry is gathered over the mesh
+    dimensions that shard its rows (tokens are small), sliced, and each
+    microbatch sharded there again where its rows divide the shards (else
+    left replicated there, as the rules' fallback replicates)."""
+    dtensor = L.dtensor_type()
+    out = [{} for _ in range(accum)]
+    for k, v in batch.items():
+        rows = v.shape[0] // accum
+        if dtensor is None or not isinstance(v, dtensor):
+            micro = v.reshape((accum, rows) + v.shape[1:])
+            for i in range(accum):
+                out[i][k] = micro[i]
+            continue
+        from torch.distributed.tensor import Replicate
+        mesh = v.device_mesh
+        whole = v.redistribute(mesh, [Replicate() if p.is_shard(0) else p
+                                      for p in v.placements])
+        target, cut = [], 1
+        for dim, p in enumerate(v.placements):
+            if p.is_shard(0) and rows % (cut * mesh.size(dim)) == 0:
+                cut *= mesh.size(dim)
+            elif p.is_shard(0):
+                p = Replicate()
+            target.append(p)
+        for i in range(accum):
+            out[i][k] = whole[i * rows:(i + 1) * rows].redistribute(
+                mesh, target)
+    return out
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig()):
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``: the parameters and the optimizer state are updated in place
@@ -154,9 +187,13 @@ def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig()):
     so the step never waits on the host.
 
     With ``cfg.grad_accum`` > 1 the batch is split into that many
-    microbatches, and each one's gradients are added into float32 buffers as
-    ``g / accum`` (not into ``.grad`` in the parameters' dtype), its loss as
-    ``loss / accum``; the other metrics are the microbatches' means."""
+    microbatches, as JAX splits it: microbatch i is rows [i·B/accum,
+    (i+1)·B/accum) of the global batch (on a DTensor batch, gathered and
+    sharded again over the data axes, :func:`_microbatches`).  Each one's
+    gradients are added into float32 buffers as ``g / accum`` (not into
+    ``.grad`` in the parameters' dtype; on DTensor parameters the buffers
+    have the parameters' placements), its loss as ``loss / accum``; the
+    other metrics are the microbatches' means."""
     accum = max(int(getattr(cfg, "grad_accum", 1)), 1)
 
     def train_step(model, opt_state, batch):
@@ -165,19 +202,14 @@ def make_train_step(cfg, opt_cfg: AdamWConfig = AdamWConfig()):
             loss, metrics, grads = _grads(cfg, model, params, batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
-            micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-                     for k, v in batch.items()}
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.items()}
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            seq = []
-            for i in range(accum):
-                l_i, m_i, g_i = _grads(cfg, model, params,
-                                       {k: v[i] for k, v in micro.items()})
+            loss, seq = None, []
+            for mb in _microbatches(batch, accum):
+                l_i, m_i, g_i = _grads(cfg, model, params, mb)
                 for n, g in g_i.items():
                     grads[n] = grads[n] + g.float() / accum
-                loss = loss + l_i / accum
+                loss = l_i / accum if loss is None else loss + l_i / accum
                 seq.append(m_i)
             metrics = {k: torch.stack([m[k].detach() for m in seq]).mean()
                        for k in seq[0]}

@@ -13,6 +13,12 @@ parameter's dtype.  ``lr`` and the bias corrections are float32 tensors
 computed on the device from the int32 step, as JAX computes them, so a step
 never waits on the host.  With bf16 parameters an early-warmup update can be
 below half an ulp of a weight, which then does not move — as in JAX.
+
+On DTensor parameters (training over a mesh) the same functions run on
+each device's shards: ``m`` and ``v`` keep their parameters' placements
+(``ShardingRules.tree_opt_specs``), ``step`` is replicated, and the
+gradient norm reduces over every shard and every mesh dimension, so it
+arrives replicated, as ``lr`` does.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import math
 
 import torch
 from torch import nn
+
+from repro_torch.device import dtensor_type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,14 +53,25 @@ def _named(params) -> dict[str, torch.Tensor]:
 
 def init_opt_state(params) -> dict:
     """Float32 zeros beside every parameter (a module or a dict of tensors),
-    and a 0-d int32 step on their device."""
+    and a 0-d int32 step on their device.  Beside DTensor parameters the
+    zeros are DTensors at the parameters' placements and the step is
+    replicated on their mesh."""
     named = _named(params)
-    device = next(iter(named.values())).device
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    first = next(iter(named.values()))
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in named.items()}
+    dtensor = dtensor_type()
+    if dtensor is not None and isinstance(first, dtensor):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor import zeros as dzeros
+        mesh = first.device_mesh
+        step = dzeros((), dtype=torch.int32, device_mesh=mesh,
+                      placements=[Replicate()] * mesh.ndim)
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
     return {"m": zeros,
             "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": step}
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -68,9 +87,26 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every tensor, summed tensor
-    by tensor in the order given."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    by tensor in the order given.  Over DTensors each tensor's sum of
+    squares is reduced over its shards and every mesh dimension, and the
+    norm is replicated."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tensors))
+    return _placed_like(norm, None)
+
+
+def _placed_like(t, ref):
+    """A DTensor ``t`` at ``ref``'s placements (replicated when ``ref`` is
+    None); anything else as it is."""
+    dtensor = dtensor_type()
+    if dtensor is None or not isinstance(t, dtensor):
+        return t
+    from torch.distributed.tensor import Replicate
+    placements = (ref.placements if ref is not None
+                  else [Replicate()] * t.device_mesh.ndim)
+    if tuple(t.placements) == tuple(placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
 
 
 @torch.no_grad()
@@ -94,8 +130,10 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state: dict):
     m_all, v_all = opt_state["m"], opt_state["v"]
     for name, p in named.items():
         g = grads[name].float() * scale
-        m = cfg.b1 * m_all[name] + (1 - cfg.b1) * g
-        v = cfg.b2 * v_all[name] + (1 - cfg.b2) * torch.square(g)
+        m = _placed_like(cfg.b1 * m_all[name] + (1 - cfg.b1) * g,
+                         m_all[name])
+        v = _placed_like(cfg.b2 * v_all[name] + (1 - cfg.b2)
+                         * torch.square(g), v_all[name])
         update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         p32 = p.float()
         p.copy_(p32 - lr * (update + cfg.weight_decay * p32))

@@ -12,6 +12,15 @@
   (p50 × factor); at scale the flagged host would be cordoned and its data
   shard re-issued — re-issue is free here because the pipeline is
   counter-based (see repro_torch.data.pipeline).
+* over a mesh (``launch.train.build(mesh=)``) the loop runs on every rank
+  of the process group.  The step's metrics are replicated, so every rank
+  reads the same loss, sees the same non-finite value and restores
+  together; checkpoints are gathered on every rank and written by rank 0
+  (:mod:`repro_torch.checkpoint.manager`).  Only rank 0 checks that the
+  directory is empty, and every rank gets its answer.  A fault that one
+  rank alone sees is out of scope: that rank would restore while the
+  others wait in the step's next collective.  There is no watchdog across
+  ranks, as the JAX loop has none.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.data import batch_to_device
+from repro_torch.device import process_group
 
 
 class StepWatchdog:
@@ -45,18 +55,25 @@ class StepWatchdog:
 class FaultTolerantLoop:
     """Run (train_step, stream) on ``model`` to `total_steps` surviving
     injected faults.  ``train_step(model, opt_state, batch)`` is
-    :func:`repro_torch.models.steps.make_train_step`'s; the stream's numpy
-    batches go to the model's device.  A checkpoint holds ``{"params":
-    model.state_dict(), "opt": opt_state}`` and the stream's state.
-    ``ckpt_dir`` must hold no checkpoint yet (``FileExistsError``)."""
+    :func:`repro_torch.models.steps.make_train_step`'s (or, over a mesh,
+    ``launch.train.build``'s); the stream's numpy batches go to the model's
+    device.  A checkpoint holds ``{"params": model.state_dict(), "opt":
+    opt_state}`` and the stream's state.  ``ckpt_dir`` must hold no
+    checkpoint yet (``FileExistsError``, on every rank)."""
 
     def __init__(self, train_step, stream, model, opt_state, *,
                  ckpt_dir: str, ckpt_every: int = 10, keep: int = 3,
                  fault_hook=None, max_restarts: int = 10):
-        if latest_step(ckpt_dir) is not None:
+        dist = process_group()
+        held = [latest_step(ckpt_dir)
+                if dist is None or dist.get_rank() == 0 else None]
+        if dist is not None:
+            # rank 0 reads the directory, every rank gets its answer
+            dist.broadcast_object_list(held, src=0)
+        if held[0] is not None:
             raise FileExistsError(f"{ckpt_dir} already holds checkpoints "
-                                  f"(step {latest_step(ckpt_dir)}): give "
-                                  f"each run a new directory")
+                                  f"(step {held[0]}): give each run a new "
+                                  f"directory")
         self.train_step = train_step
         self.stream = stream
         self.model = model

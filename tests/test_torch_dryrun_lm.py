@@ -13,6 +13,7 @@ none on a 1 × 1 mesh.  The skip rule and ``model_flops`` are JAX's; the CLI
 writes one record per cell.  Nothing here is timed.
 """
 import dataclasses
+import functools
 import json
 import math
 import types
@@ -60,13 +61,72 @@ def _mesh(name):
     return MESH.make_mesh(shape, axes, ["cpu"])
 
 
-def _jax_argument_bytes(arch, shape, mesh_name, overrides) -> int:
-    """The local shard bytes of every input leaf of JAX's cell
-    (``_lm_cell``: params, optimizer state and batch for train; params and
-    the batch without labels for prefill; params, cache, token and the
-    int32 index for decode) under JAX's own specs."""
+def _jax_cell_inputs(arch, shape, overrides):
+    """JAX's cell (``_lm_cell``) as its step, its abstract arguments, and
+    per argument the rule of its leaves' specs, ``spec(rules, path,
+    leaf)``: params, optimizer state and batch for train; params and the
+    batch without labels for prefill; params, cache, token and the int32
+    index for decode."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import steps as JST
     cfg = dataclasses.replace(jax_get_config(arch), **overrides)
     shape_cfg = JAX_SHAPES[shape]
+
+    def param(rules, path, leaf):
+        return rules.param_spec(path, leaf.shape)
+
+    def batch_(rules, path, leaf):
+        return rules.batch_spec(leaf.shape)
+
+    def scalar(rules, path, leaf):
+        return ()
+
+    def moment(rules, path, leaf):
+        return () if leaf.ndim == 0 else rules.param_spec(path[2:],
+                                                          leaf.shape)
+
+    def cache_(rules, path, leaf):
+        return rules.cache_spec(path, leaf.shape)
+
+    if shape_cfg.kind == "train":
+        params, opt = JSP.abstract_train_state(cfg)
+        batch = JSP.train_batch_specs(cfg, shape_cfg)
+        return (JST.make_train_step(cfg), (params, opt, batch),
+                (param, moment, batch_))
+    params = JSP.abstract_params(cfg)
+    if shape_cfg.kind == "prefill":
+        batch = JSP.train_batch_specs(cfg, shape_cfg)
+        batch.pop("labels")
+        prefix = cfg.frontend_len if cfg.frontend == "vision_stub" else 0
+        return (JST.make_prefill(cfg, max_len=shape_cfg.seq_len + prefix),
+                (params, batch), (param, batch_))
+    cache, token = JSP.decode_inputs_specs(cfg, shape_cfg)
+    return (JST.make_decode_step(cfg),
+            (params, cache, token, jax.ShapeDtypeStruct((), jnp.int32)),
+            (param, cache_, batch_, scalar))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_kept(arch, shape, overrides_items) -> frozenset:
+    """The flat indices of the arguments JAX's jitted cell keeps
+    (``kept_var_idx``: it drops an argument the step never reads); the
+    mesh does not change which."""
+    import jax
+    step, args, _ = _jax_cell_inputs(arch, shape, dict(overrides_items))
+    lowered = jax.jit(step).lower(*args)
+    return frozenset(lowered._lowering.compile_args["kept_var_idx"])
+
+
+def _jax_argument_bytes(arch, shape, mesh_name, overrides) -> int:
+    """The local shard bytes, under JAX's own specs, of the input arrays of
+    JAX's cell that its jitted step keeps, and 4 bytes for the decode
+    index whether JAX keeps it or not: the port's index is a Python
+    number, which no census sees read (JAX drops it from mamba2_370m's
+    decode, which reads no position)."""
+    import jax
+    _, args, specs = _jax_cell_inputs(arch, shape, overrides)
+    kept = _jax_kept(arch, shape, tuple(sorted(overrides.items())))
     dims, axes = MESHES[mesh_name]
     rules = JaxRules(types.SimpleNamespace(
         axis_names=axes, devices=np.empty(dims, dtype=object)))
@@ -87,40 +147,14 @@ def _jax_argument_bytes(arch, shape, mesh_name, overrides) -> int:
         return "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
                         for p in path)
 
-    def leaves(tree):
-        import jax
-        return jax.tree_util.tree_flatten_with_path(tree)[0]
-
-    total = 0
-    if shape_cfg.kind == "train":
-        params, opt = JSP.abstract_train_state(cfg)
-        batch = JSP.train_batch_specs(cfg, shape_cfg)
-        for path, leaf in leaves(params):
-            total += shard_bytes(leaf, rules.param_spec(key(path), leaf.shape))
-        for path, leaf in leaves(opt):
-            k = key(path)
-            spec = () if leaf.ndim == 0 else rules.param_spec(k[2:],
-                                                              leaf.shape)
-            total += shard_bytes(leaf, spec)
-        for _, leaf in leaves(batch):
-            total += shard_bytes(leaf, rules.batch_spec(leaf.shape))
-        return total
-    params = JSP.abstract_params(cfg)
-    if shape_cfg.kind == "prefill":
-        batch = JSP.train_batch_specs(cfg, shape_cfg)
-        batch.pop("labels")
-        for path, leaf in leaves(params):
-            total += shard_bytes(leaf, rules.param_spec(key(path),
-                                                        leaf.shape))
-        for _, leaf in leaves(batch):
-            total += shard_bytes(leaf, rules.batch_spec(leaf.shape))
-        return total
-    cache, token = JSP.decode_inputs_specs(cfg, shape_cfg)
-    for path, leaf in leaves(params):
-        total += shard_bytes(leaf, rules.param_spec(key(path), leaf.shape))
-    for path, leaf in leaves(cache):
-        total += shard_bytes(leaf, rules.cache_spec(key(path), leaf.shape))
-    return total + shard_bytes(token, rules.batch_spec(token.shape)) + 4
+    total, flat = 0, 0
+    for arg, (tree, spec) in enumerate(zip(args, specs)):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            index = JAX_SHAPES[shape].kind == "decode" and arg == 3
+            if flat in kept or index:
+                total += shard_bytes(leaf, spec(rules, key(path), leaf))
+            flat += 1
+    return total
 
 
 @pytest.mark.parametrize("mesh_name", ["4x2", "2x2x2"])

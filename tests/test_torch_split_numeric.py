@@ -2,9 +2,9 @@
 unsharded function, on real DTensors.
 
 Eight processes on the CPU (a ``gloo`` group, spawned) form a (2, 4)
-``data`` × ``model`` mesh and run one decode step of six smoke configs in
-float32, their parameters, cache and token laid out by the sharding rules
-as the dry run lays them out: internlm2_20b with 12 query and 2 KV heads
+``data`` × ``model`` mesh and run one decode step of eleven smoke configs
+in float32, their parameters, cache and token laid out by the sharding
+rules as the dry run lays them out: internlm2_20b with 12 query and 2 KV heads
 (the KV projection gathered, each device's query heads in one GQA group),
 mamba2_370m (SSD heads over ``model``, the state at ``cache_spec``'s
 placements), moonshot_v1_16b_a3b (experts over ``model``) with a capacity
@@ -34,7 +34,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import steps as ST
 
-MESH = ((2, 4), ("data", "model"))
+MESHES = {"2x4": ((2, 4), ("data", "model")),
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 BATCH, CACHE_LEN, TRAIN_LEN = 16, 8, 16
 TOL = 1e-5
 WORKERS_TIMEOUT_S = 300
@@ -52,13 +53,26 @@ CASES = {
     # 5 heads over 4, gathered: the encoder, cross attention and the
     # learned positions
     "whisper_large_v3": {"n_heads": 5, "n_kv_heads": 5},
+    "olmo_1b": {},
+    # llama3_405b's 128/8 and starcoder2_7b's 36/4 head ratios
+    "llama3_405b": {"n_heads": 16, "n_kv_heads": 1},
+    "starcoder2_7b": {"n_heads": 9, "n_kv_heads": 1},
+    # 4 query and 2 KV heads, and the vision prefix of 8 embeddings
+    "internvl2_1b": {},
+    "olmo_1b@2x2x2": {},
 }
 MOE = ("moonshot_v1_16b_a3b", "granite_moe_3b_a800m")
 
 
-def _inputs(arch, overrides):
+def _arch_mesh(case) -> tuple:
+    """(arch, mesh name) of a case ``arch`` or ``arch@mesh``."""
+    arch, _, mesh = case.partition("@")
+    return arch, mesh or "2x4"
+
+
+def _inputs(case, overrides):
     """The case's config, model, cache and token, from seed 0."""
-    cfg = dataclasses.replace(smoke_config(arch), **overrides)
+    cfg = dataclasses.replace(smoke_config(_arch_mesh(case)[0]), **overrides)
     model = M.LMModel(cfg, device="cpu", seed=0)
     rng = np.random.default_rng(0)
     cache = M.init_cache(cfg, BATCH, CACHE_LEN, enc_len=cfg.frontend_len,
@@ -73,12 +87,13 @@ def _inputs(arch, overrides):
 
 
 def _train_batch(cfg):
-    """Tokens and labels, and the encoder's frame embeddings (whisper)."""
+    """Tokens and labels, and the encoder's frame embeddings (whisper) or
+    the vision prefix's (internvl2)."""
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg.vocab_size, (BATCH, TRAIN_LEN + 1))
     batch = {"tokens": torch.from_numpy(tokens[:, :-1].astype(np.int32)),
              "labels": torch.from_numpy(tokens[:, 1:].astype(np.int32))}
-    if cfg.encoder_layers:
+    if cfg.encoder_layers or cfg.frontend == "vision_stub":
         batch["embeds"] = torch.from_numpy(rng.standard_normal(
             (BATCH, cfg.frontend_len, cfg.d_model)).astype(np.float32))
     return batch
@@ -147,45 +162,49 @@ def _worker(rank, world, init, out, cases):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
+    meshes = {}
     try:
-        mesh = MESH_.make_mesh(*MESH, ["cpu"])
-        dmesh = MESH_.device_mesh(mesh, "cpu")
-        rules = SH.ShardingRules(mesh)
-
-        def put(t, spec):
-            return distribute_tensor(t, dmesh, SH.placements(spec, dmesh))
-
-        def place(model, cache, token):
-            specs = rules.tree_param_specs(model)
-            for prefix, mod in model.named_modules():
-                for name, p in list(mod._parameters.items()):
-                    full = f"{prefix}.{name}" if prefix else name
-                    mod._parameters[name] = torch.nn.Parameter(
-                        put(p.detach(), specs[full]))
-            cache = [{k: put(t, s[k]) for k, t in c.items()}
-                     for c, s in zip(cache, rules.tree_cache_specs(cache))]
-            return model, cache, put(token, rules.batch_spec(token.shape))
-
         results = {}
-        for arch, overrides in cases.items():
-            with implicit_replication():
-                nxt, logits, cache, kept = _step(arch, overrides, place)
-            # the kept choices of each batch shard, from its model rank 0
-            shards = [None] * world
-            dist.all_gather_object(shards, (dmesh.get_coordinate(), kept))
-            kept = [torch.cat([k[layer] for (r, m), k in sorted(
-                        (tuple(c), k) for c, k in shards) if m == 0])
-                    for layer in range(len(kept))]
+        for case, overrides in cases.items():
+            mesh_name = _arch_mesh(case)[1]
+            if mesh_name not in meshes:
+                mesh = MESH_.make_mesh(*MESHES[mesh_name], ["cpu"])
+                meshes[mesh_name] = (mesh, MESH_.device_mesh(mesh, "cpu"))
+            mesh, dmesh = meshes[mesh_name]
+            rules = SH.ShardingRules(mesh)
+
+            def put(t, spec):
+                return distribute_tensor(t, dmesh, SH.placements(spec, dmesh))
+
+            def place(model, cache, token):
+                specs = rules.tree_param_specs(model)
+                for prefix, mod in model.named_modules():
+                    for name, p in list(mod._parameters.items()):
+                        full = f"{prefix}.{name}" if prefix else name
+                        mod._parameters[name] = torch.nn.Parameter(
+                            put(p.detach(), specs[full]))
+                cache = [{k: put(t, s[k]) for k, t in c.items()}
+                         for c, s in zip(cache, rules.tree_cache_specs(cache))]
+                return model, cache, put(token, rules.batch_spec(token.shape))
+
             def put_batch(batch):
                 return {k: put(v, rules.batch_spec(v.shape))
                         for k, v in batch.items()}
 
             with implicit_replication():
-                loss, grads = _gradients(arch, overrides, place, put_batch)
+                nxt, logits, cache, kept = _step(case, overrides, place)
+            # the kept choices of each batch shard, from its model rank 0
+            shards = [None] * world
+            dist.all_gather_object(shards, (dmesh.get_coordinate(), kept))
+            kept = [torch.cat([k[layer] for c, k in sorted(
+                        (tuple(c), k) for c, k in shards) if c[-1] == 0])
+                    for layer in range(len(kept))]
+            with implicit_replication():
+                loss, grads = _gradients(case, overrides, place, put_batch)
                 pre_logits, pre_cache = _prefill(
-                    arch, overrides, place, put_batch,
+                    case, overrides, place, put_batch,
                     D._Placer(mesh, dmesh).cache_allocator(rules))
-            results[arch] = {
+            results[case] = {
                 "next": nxt.full_tensor(), "logits": logits.full_tensor(),
                 "cache": [{k: t.full_tensor() for k, t in c.items()}
                           for c in cache],
@@ -203,7 +222,7 @@ def _worker(rank, world, init, out, cases):
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("split_numeric")
-    world = int(np.prod(MESH[0]))
+    world = int(np.prod(MESHES["2x4"][0]))
     workers = mp.start_processes(
         _worker, args=(world, f"file://{tmp / 'store'}", str(tmp / "out.pt"),
                        CASES), nprocs=world, join=False,
