@@ -159,7 +159,18 @@ Phases, each printing one JSON line:
    against the data sheet's rates) and replayed under torch.profiler: K1/K2
    nodes against the fold profile, every output exact, the predicted device
    time beside the launch floor and the profiled device time, the graph
-   pool's bytes and the card; then the LM cells of the dry run
+   pool's bytes and the card; then the same four cells planned on 16 × 16
+   and 2 × 16 × 16 (``run_cell`` with ``multi_pod``: JAX's rows, 2,048 and
+   4,096, over a fake process group, the step a per-device region on
+   rank 0's shards under the sharded census), each ``ok`` with JAX's
+   record keys and no collective, and rank 0's block (128 rows against
+   d ÷ 16 output columns, the ``share``) run on the card as the one-device
+   cells are, exact, its K1/K2 nodes equal to the plan's calls a device
+   and the fold profile (run once, on 16 × 16, and taken by 2 × 16 × 16,
+   whose block is the same); K1 and K2 at the shares' shapes bit for bit
+   against their plain versions and timed beside their bounds, the plain
+   versions and, for K1, ``torch.matmul`` in f32 (``share_kernels``);
+   then the LM cells of the dry run
    (``run_cell`` on the production meshes, planned on the host: a fake
    process group, DTensors under FakeTensorMode, the sharded census):
    olmo_1b ``train_4k`` and ``decode_32k``, mamba2_370m ``long_500k`` and
@@ -253,7 +264,15 @@ Phases, each printing one JSON line:
    card's int32 path (``torch._int_mm``, padded) equal bit for bit to the
    CPU's plain integer path, within 0.05 of the bf16 product, µs against
    ``torch.matmul`` in bf16; an exact-window case (K = 2048) against the
-   int64 product.
+   int64 product; (d) the process-group forms of (a) and (b)
+   (``pipeline_forward`` and ``compressed_grad_sync`` given a
+   ``DeviceMesh``) on a one-rank NCCL group, a ``pod`` axis of one rank:
+   the sync of (b)'s tree and GPipe of (a)'s 16 layers as one stage, each
+   bit for bit equal to the single-controller form on a one-position axis,
+   with the ms of both; (e) four spawned ranks of one gloo group, every
+   rank on the card: the sync of the smoke tree, each rank bit for bit
+   equal to the single-controller form it runs itself (gloo cannot send a
+   CUDA tensor, so GPipe does not run there).
 
 Eleven short calls run the first phase and stop: ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
@@ -2604,6 +2623,9 @@ def phase_dryrun(dev, env: dict) -> dict:
               f"{replays} replays")
         rec["launches"] = launches
         out["cells"].append(rec)
+    out["mesh_cells"] = _dryrun_mesh_cells(dev)
+    out["share_kernels"] = _share_kernels(dev, env["device"],
+                                          out["mesh_cells"])
     out["census_local"] = _census_sees_local_shards()
     out["lm_cells"] = []
     for (arch, shape), multi in [(c, m) for c in DRYRUN_LM_CELLS
@@ -2624,6 +2646,141 @@ def phase_dryrun(dev, env: dict) -> dict:
         out["lm_cells"].append(rec)
     emit(out)
     return out
+
+
+def _dryrun_mesh_cells(dev) -> list:
+    """DRYRUN_CELLS planned on both production meshes (``run_cell`` with
+    ``multi_pod``: JAX's rows, the fake group, the sharded census), each
+    with rank 0's block run on the card (the ``share``: captured,
+    validated, priced, replayed under torch.profiler, exact).  The block is
+    the same on both meshes, so the first mesh runs it and the second takes
+    it; the counters are set to 0 before each mesh: the first's K1/K2
+    launches must be the share's nodes × (1 + its replays), the second's 0
+    (a plan launches nothing).  Each plan: ``ok``, no collective, its K1/K2
+    calls a device equal to the share's nodes and the fold profile."""
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        share = None
+        for multi in (False, True):
+            _reset_counters()
+            rec = DRY.run_cell(arch, shape, multi_pod=multi, device=dev,
+                               share=share)
+            torch.cuda.synchronize(dev)
+            launches = _counts()
+            what = f"dryrun {arch} {shape} {rec['mesh']}"
+            check(rec["status"] == "ok", f"{what}: {rec.get('error')}")
+            n_chips = 512 if multi else 256
+            sh = rec["share"]
+            nodes = {k: sh["kernel_nodes"][k] for k in ("limb_matmul",
+                                                         "mont_fold")}
+            check(rec["rows"] == DRY.CRYPTO_SHAPES[shape]["rows_per_core"]
+                  * n_chips and rec["roofline"]["n_chips"] == n_chips
+                  and rec["collectives_naive"]["count"] == 0
+                  and sh["exact"] and not sh["v_codes"]
+                  and nodes == rec["fold_profile"]["launches"]
+                  == {k: rec["kernel_nodes"][k] for k in nodes},
+                  f"{what}: rows {rec['rows']}, collectives "
+                  f"{rec['collectives_naive']}, share nodes {nodes}, plan "
+                  f"{rec['kernel_nodes']}, V codes {sh['v_codes']}")
+            want = ({k: v * (1 + sh["replays"]) for k, v in nodes.items()}
+                    if share is None else {k: 0 for k in nodes})
+            check({k: launches[k] for k in nodes} == want
+                  and launches["fused_ntt_tile"] == 0,
+                  f"{what}: launches {launches}, expected {want}")
+            rec["launches"] = launches
+            rec.pop("trace", None)
+            cells.append(rec if share is None else
+                         dict(rec, share={"same_as": share["mesh"]}))
+            share = sh
+    return cells
+
+
+def _share_shapes(rec) -> dict:
+    """K1 and K2 shapes of a share and the launches of each in one run of
+    its step: every staging tile (Dilithium 171 wide, BN254 128) is
+    La·Lw K1 calls a channel, every pass one K2 call a channel."""
+    sh, prof = rec["share"], rec["fold_profile"]
+    limbs = DRY.LIMBS[rec["workload"]]
+    channels = prof["n_channels"]
+    step = G.staging_d_max(limbs, limbs, rec["accum"])
+    widths = [min(step, rec["d"] - lo) for lo in range(0, rec["d"], step)]
+    k1, k2 = collections.Counter(), collections.Counter()
+    for k in widths:
+        k1[(sh["rows"], k, sh["cols"])] += limbs * limbs * channels
+        k2[(sh["rows"] * sh["cols"], prof["n_diag"])] += channels
+    return {"limb_matmul": k1, "mont_fold": k2}
+
+
+def _share_kernels(dev, card: str, mesh_cells: list) -> list:
+    """K1 and K2 at the shapes of each cell's share (128 rows against d ÷
+    16 output columns), each checked bit for bit against its plain version
+    on the card, then timed (CUDA events, 20 calls a run, median of 20
+    runs; K1 in turns with its plain version and ``torch.matmul`` in f32,
+    TF32 off), its device time (torch.profiler), its bound as the share
+    prices it (``graph_cost.node_cost``: an fp32_mantissa GEMM as FFMA;
+    K1's int8 tensor-core bound beside it), its launches in one run of the
+    share and the cell.  The launches here compare a
+    kernel with its plain version and are not the main path's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 27)
+    rows = []
+    for rec in mesh_cells:
+        if "same_as" in rec["share"]:
+            continue
+        fp32 = rec["accum"] == "fp32_mantissa"
+        modulus = DRY.moduli(rec["workload"])[0]
+        for kernel, counts in _share_shapes(rec).items():
+            for shape, launches in counts.items():
+                row = {"cell": f"{rec['arch']} {rec['shape']}",
+                       "kernel": kernel, "shape": list(shape),
+                       "launches_per_share": launches}
+                if kernel == "limb_matmul":
+                    n, k, m = shape
+                    a = torch.as_tensor(rng.integers(0, 256, (n, k),
+                                                     dtype=np.uint8),
+                                        device=dev)
+                    b = torch.as_tensor(rng.integers(-128, 128, (k, m))
+                                        .astype(np.int8), device=dev)
+                    err = max_abs_err(limb_matmul_cuda(a, b, rec["accum"]),
+                                      limb_matmul_ref(a, b, rec["accum"]))
+                    bound, by = bound_ms(kernel, card, n=n, k=k, m=m,
+                                         fp32=fp32)
+                    row["int8_bound_ms"] = bound_ms(kernel, card, n=n, k=k,
+                                                    m=m)[0]
+                    call = (lambda a=a, b=b: limb_matmul_cuda(a, b,
+                                                              rec["accum"]))
+                    fns = {"kernel": call,
+                           "plain": lambda a=a, b=b: limb_matmul_ref(
+                               a, b, rec["accum"])}
+                    a_f, b_f = a.float(), b.float()
+                    fns["library"] = lambda a_f=a_f, b_f=b_f: torch.matmul(
+                        a_f, b_f)
+                    name = "limb_matmul_kernel"
+                else:
+                    n_out, nd = shape
+                    diags = k2_inputs(rng, dev, (n_out, nd))
+                    err = max_abs_err(mont_fold_cuda(diags, modulus),
+                                      mont_fold_ref(diags, modulus))
+                    bound, by = bound_ms(kernel, card, n_out=n_out,
+                                         n_diag=nd)
+                    call = (lambda diags=diags: mont_fold_cuda(diags,
+                                                               modulus))
+                    fns = {"kernel": call, "plain": lambda diags=diags:
+                           mont_fold_ref(diags, modulus)}
+                    name = "mont_fold_kernel"
+                check(err == 0, f"share {kernel} {shape}: max |err| {err}")
+                ms = median_ms_turns(fns, dev, runs=20)
+                rows.append(dict(
+                    row, max_abs_err=err, kernel_ms=ms["kernel"],
+                    kernel_device_ms=device_ms(call, name, dev),
+                    plain_ms=ms["plain"], library_ms=ms.get("library"),
+                    library_device_ms=(device_ms(fns["library"], None, dev)
+                                       if "library" in fns else None),
+                    bound_ms=bound, bound_by=by,
+                    blocks=(grid_blocks(shape[0], shape[2])
+                            if kernel == "limb_matmul"
+                            else k2_grid_blocks(shape[0]))))
+    return rows
 
 
 def _census_sees_local_shards() -> dict:
@@ -3356,19 +3513,11 @@ def _dist_gpipe(dev) -> dict:
     stages = [model.layers[i * per:(i + 1) * per] for i in range(DIST_STAGES)]
     mesh = MESH.make_mesh((DIST_STAGES,), ("pod",), [dev])
     b, s = DIST_MB
-    positions = torch.arange(s, device=dev)[None].expand(b, s)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = torch.randn((DIST_MICRO, b, s, cfg.d_model), generator=gen,
                      device=dev).to(torch_dtype(cfg))
     calls = [0]
-
-    def stage_fn(layers, x):
-        calls[0] += 1
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in layers:
-            x, aux, _ = LM._decoder_layer(cfg, lp, x, aux,
-                                          positions=positions, mode="train")
-        return x
+    stage_fn = _olmo_stage_fn(cfg, dev, calls)
 
     def pipeline():
         return pipeline_forward(stage_fn, stages, xs, mesh=mesh, axis="pod")
@@ -3536,8 +3685,155 @@ def _dist_aqt(dev) -> dict:
                              "rel_err": window_err}}
 
 
+def _olmo_stage_fn(cfg, dev, calls: list):
+    """olmo_1b's decoder layers applied to a (2, 128) microbatch of hidden
+    states, counting its calls."""
+    b, s = DIST_MB
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+
+    def stage_fn(layers, x):
+        calls[0] += 1
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in layers:
+            x, aux, _ = LM._decoder_layer(cfg, lp, x, aux,
+                                          positions=positions, mode="train")
+        return x
+    return stage_fn
+
+
+def _dist_process_group(dev) -> dict:
+    """(d) the process-group forms (``compressed_grad_sync`` and
+    ``pipeline_forward`` given a ``DeviceMesh``) on a one-rank NCCL group:
+    a ``pod`` axis of one rank on the card against the single-controller
+    forms on a one-position ``pod`` axis, bit for bit: the sync of (b)'s
+    olmo_1b gradient tree, and GPipe of (a)'s 16 layers as one stage on
+    DIST_MICRO microbatches; ms of each form (CUDA events, median)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        one = MESH.make_mesh((1,), ("pod",), [dev])
+        dmesh = MESH.device_mesh(one, "cuda")
+        cfg = get_config(LM_FULL)
+        grads = _grad_tree(cfg, dev)
+        err = init_error_state(grads)
+        got = compressed_grad_sync(grads, err, mesh=dmesh)
+        want = compressed_grad_sync(grads, err, mesh=one)
+        for w_tree, g_tree, what in ((want[0], got[0], "synced"),
+                                     (want[1], got[1], "error state")):
+            bad = [n for n in w_tree if not torch.equal(w_tree[n],
+                                                        g_tree[n])]
+            check(not bad, f"dist process group: the {what} differs from "
+                  f"the single controller's at {bad[:4]}")
+        del got, want
+        sync_ms = {
+            "process_group": _timed_ms(lambda: compressed_grad_sync(
+                grads, err, mesh=dmesh), dev, DIST_SYNC_RUNS),
+            "single_controller": _timed_ms(lambda: compressed_grad_sync(
+                grads, err, mesh=one), dev, DIST_SYNC_RUNS)}
+        sync = {"leaves": len(grads), "bit_equal": True,
+                "elements": sum(g.numel() for g in grads.values()),
+                "sync_ms": sync_ms}
+        del grads, err
+        _lm_free(dev)
+        model = LM.LMModel(cfg, device=dev, seed=SEED)
+        calls = [0]
+        stage_fn = _olmo_stage_fn(cfg, dev, calls)
+        stages = [model.layers]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        xs = torch.randn((DIST_MICRO, *DIST_MB, cfg.d_model), generator=gen,
+                         device=dev).to(torch_dtype(cfg))
+        with torch.no_grad():
+            out_pg = pipeline_forward(stage_fn, stages, xs, mesh=dmesh)
+            pg_calls, calls[0] = calls[0], 0
+            out_sc = pipeline_forward(stage_fn, stages, xs, mesh=one)
+            check(torch.equal(out_pg, out_sc), "dist process group: GPipe "
+                  "differs from the single controller's")
+            gpipe_ms = {
+                "process_group": _timed_ms(lambda: pipeline_forward(
+                    stage_fn, stages, xs, mesh=dmesh), dev, DIST_RUNS),
+                "single_controller": _timed_ms(lambda: pipeline_forward(
+                    stage_fn, stages, xs, mesh=one), dev, DIST_RUNS)}
+        gpipe = {"stages": 1, "layers_per_stage": cfg.n_layers,
+                 "microbatches": DIST_MICRO, "stage_calls": pg_calls,
+                 "bit_equal": True, "pipeline_ms": gpipe_ms}
+        del model, stages, xs, out_pg, out_sc
+        _lm_free(dev)
+    finally:
+        dist.destroy_process_group()
+    return {"backend": "nccl", "world_size": 1, "mesh": {"pod": 1},
+            "compression": sync, "gpipe": gpipe}
+
+
+# (e) four gloo ranks on the one card: the sync of the smoke gradient tree,
+# each rank against the single-controller form it runs itself on a
+# 4-position axis on the card.  GPipe is not run there: gloo's TCP pairs
+# write a tensor from its address, and a CUDA tensor's send fails ("writev
+# ... Bad address"), which aborts the rank from gloo's own thread (SIGABRT,
+# no Python exception; see PERF.md §6).
+DIST_GLOO_RANKS = 4
+DIST_GLOO_TIMEOUT_S = 300
+
+
+def _gloo_rank(rank: int, init: str, out: str):
+    """One rank of (e): the sync's all-gather and all-reduce on CUDA
+    tensors through a gloo group; its result against the single
+    controller's, and its ms (CUDA events, median)."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=DIST_GLOO_RANKS)
+    try:
+        mesh = MESH.make_mesh((DIST_GLOO_RANKS,), ("pod",), [dev])
+        dmesh = MESH.device_mesh(mesh, "cuda")
+        grads = _grad_tree(smoke_config(LM_FULL), dev)
+        err = init_error_state(grads)
+        got = compressed_grad_sync(grads, err, mesh=dmesh)
+        want = compressed_grad_sync(grads, err, mesh=mesh)
+        res = {"rank": rank, "bit_equal": all(
+            torch.equal(got[i][n], want[i][n]) for i in (0, 1)
+            for n in grads),
+            "sync_ms": _timed_ms(lambda: compressed_grad_sync(
+                grads, err, mesh=dmesh), dev, DIST_SYNC_RUNS)}
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"gloo_cuda_rank{rank}.json").write_text(json.dumps(res))
+
+
+def _dist_gloo_cuda() -> dict:
+    """(e): DIST_GLOO_RANKS spawned processes, one gloo group, every rank
+    on the one card; every rank's sync must equal the single controller's
+    bit for bit."""
+    import torch.multiprocessing as mp
+    tmp = OUT / "gloo_cuda"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    t0 = time.perf_counter()
+    workers = mp.start_processes(_gloo_rank, args=(f"file://{tmp / 'store'}",
+                                                   str(tmp)),
+                                 nprocs=DIST_GLOO_RANKS, join=False,
+                                 start_method="spawn")
+    deadline = time.monotonic() + DIST_GLOO_TIMEOUT_S
+    while not workers.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in workers.processes:
+                p.kill()
+            raise AssertionError(f"dist gloo: the {DIST_GLOO_RANKS} ranks did "
+                                 f"not finish in {DIST_GLOO_TIMEOUT_S} s")
+    ranks = [json.loads((tmp / f"gloo_cuda_rank{r}.json").read_text())
+             for r in range(DIST_GLOO_RANKS)]
+    check(all(r["bit_equal"] for r in ranks), "dist gloo: a rank's sync "
+          "differs from the single controller's")
+    return {"backend": "gloo", "world_size": DIST_GLOO_RANKS,
+            "device": "cuda:0 for every rank", "compression_bit_equal": True,
+            "sync_ms": [r["sync_ms"] for r in ranks],
+            "gpipe": "not run: gloo cannot send a CUDA tensor",
+            "wall_s": time.perf_counter() - t0}
+
+
 def phase_dist(dev, env: dict) -> dict:
-    """(a)–(c) of ``DIST_*`` above on the card, with the K1/K2/K3 counters
+    """(a)–(e) of ``DIST_*`` above on the card, with the K1/K2/K3 counters
     set to 0 just before and read just after (no Pallas kernel lies on
     these paths, so all stay 0)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3547,7 +3843,9 @@ def phase_dist(dev, env: dict) -> dict:
     out = {"phase": "dist", "nvidia_smi": env["nvidia_smi"],
            "device": torch.cuda.get_device_name(dev),
            "gpipe": _dist_gpipe(dev), "compression": _dist_compression(dev),
-           "aqt": _dist_aqt(dev)}
+           "aqt": _dist_aqt(dev),
+           "process_group": _dist_process_group(dev),
+           "gloo_cuda": _dist_gloo_cuda()}
     launches = _counts()
     check(not any(launches.values()), f"dist: kernel launches {launches}")
     out["kernel_launches"] = launches

@@ -263,8 +263,9 @@ def _staged_passes(a, plan: ChannelPlan, tiles, step: int, planes, *,
                    fold_fn=None):
     """The passes of a staged transform over the input column ranges
     ``tiles`` (each at most ``step`` wide): one ``kernel_fn`` call per pass,
-    then a fold per pass (eager) or per κ-window (lazy).  Returns ((N,
-    plan.d) int64, stats)."""
+    then a fold per pass (eager) or per κ-window (lazy).  Returns ((N, d')
+    int64, stats), d' the output columns of the planes (``plan.d`` on the
+    fused layout)."""
     kernel_fn = kernel_fn or tile_diagonals
     fold_fn = fold_fn or mont_fold
     m = plan.modulus
@@ -282,7 +283,8 @@ def _staged_passes(a, plan: ChannelPlan, tiles, step: int, planes, *,
                                         kappa=windows[0], fold_fn=fold_fn)
 
     w_full, f_full = planes
-    y = torch.zeros((n, plan.d), dtype=torch.int64, device=a.device)
+    cols = plan.d if w_full is None else w_full.shape[1]
+    y = torch.zeros((n, cols), dtype=torch.int64, device=a.device)
     dev = a.device
     for t, (lo, hi) in enumerate(tiles):
         with scope(f"staging_pass_{t}", dev):
@@ -312,11 +314,14 @@ def _staged_passes(a, plan: ChannelPlan, tiles, step: int, planes, *,
 def _planar_plan(w_planes: torch.Tensor, modulus: int, data_limbs: int,
                  accum: AccumModel) -> ChannelPlan:
     """The plan of a transform whose twiddle planes are an operand: its
-    metadata only (``w_planes`` is the caller's tensor, no fused layout)."""
-    d, d2, tw_limbs = w_planes.shape
-    if d != d2 or w_planes.dtype != torch.int8:
-        raise ValueError(f"w_planes must be (d, d, Lw) int8, got "
+    metadata only (``w_planes`` is the caller's tensor, no fused layout).
+    The planes may be a block of output columns, (d, d', Lw): a mesh
+    device's shard of the (d, d, Lw) planes; the plan's ``d`` is the input
+    degree, which sets the passes."""
+    if w_planes.dim() != 3 or w_planes.dtype != torch.int8:
+        raise ValueError(f"w_planes must be (d, d', Lw) int8, got "
                          f"{tuple(w_planes.shape)} {w_planes.dtype}")
+    d, _, tw_limbs = w_planes.shape
     return ChannelPlan(modulus=modulus, d=d, data_limbs=data_limbs,
                        tw_limbs=tw_limbs, accum=accum, w_planes=None,
                        fused_operand=None)
@@ -337,13 +342,14 @@ def staged_transform_traced(
     """Staged transform with the twiddle limb planes as an operand.
 
     w_planes: (d, d, Lw) int8 tensor (balanced signed digits) on the
-    device of ``a``, in place of a plan's baked planes.  Per-plane mode
+    device of ``a``, in place of a plan's baked planes, or a block of its
+    output columns (d, d', Lw), as one mesh device holds them.  Per-plane mode
     only: each (p, q) plane product is one ``limb_matmul`` call (K1), each
     fold one ``mont_fold`` call (K2), lazy windows go through
     :class:`~repro_torch.core.accumulator.LazyWindowAccumulator`.  The
     same passes, windows, checks and launches as :func:`staged_transform`
     on a per-plane plan: ⌈d / tile⌉ passes of La·Lw K1 calls each, and one
-    K2 call per pass (eager) or per κ-window (lazy).  Returns (N, d) int64
+    K2 call per pass (eager) or per κ-window (lazy).  Returns (N, d') int64
     residues.
 
     ``barriers`` is accepted for the JAX signature.  There it places
@@ -378,7 +384,8 @@ def staged_transform_scan(
     launch like any other.  With T = ⌈d / tile⌉ passes unpadded and
     κ_eff the window depth, this runs T' = ⌈T / κ_eff⌉·κ_eff passes:
     T'·La·Lw K1 calls, and T' K2 calls (eager) or T' / κ_eff (lazy).
-    Returns (N, d) int64 residues, equal to the traced form's.
+    Returns (N, d') int64 residues, equal to the traced form's (the planes
+    may be a block of output columns, as there).
     """
     check_reduction(reduction, kappa)
     plan = _planar_plan(w_planes, modulus, data_limbs, accum)

@@ -57,8 +57,13 @@ class RnsChain:
         return self.base + (self.redundant,)
 
     def tensors(self, device) -> dict:
+        """The chain's constants on ``device``, uploaded once per device.
+        Under a fake tensor mode (a plan over a mesh) they are made as that
+        mode's constants each call and not kept: a cached real tensor does
+        not enter a fake program, nor a fake one a real program."""
         device = torch.device(device)
-        consts = self._device_consts.get(device)
+        fake = torch._guards.detect_fake_mode() is not None
+        consts = None if fake else self._device_consts.get(device)
         if consts is None:
             def up(a):
                 return torch.as_tensor(np.asarray(a, np.int64), device=device)
@@ -66,7 +71,8 @@ class RnsChain:
                       "inv_Mi_mod_mi": up(self.inv_Mi_mod_mi),
                       "Ti_digits": up(self.Ti_digits),
                       "V_digits": up(self.V_digits)[None, :]}
-            self._device_consts[device] = consts
+            if not fake:
+                self._device_consts[device] = consts
         return consts
 
 

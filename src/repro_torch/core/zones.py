@@ -16,7 +16,9 @@ keeps the path itself:
 * :func:`launch_log` opens a log: while it is open, every call of a K1/K2/K3
   wrapper that does work appends one :class:`LaunchRecord` (kernel, scope
   path, the byte ranges it reads and writes, its static arguments), on the
-  CPU as on the card, and every scope opened adds its name to the log;
+  CPU as on the card, and every scope opened adds its name to the log (a
+  fake tensor, as a plan over a mesh runs, has no address: its ranges
+  start at None);
 * :data:`KERNEL_CALL` marks the body of a K1/K2/K3 wrapper
   (``with KERNEL_CALL:``), so that a walk over the ATen ops a function runs
   (:func:`repro_torch.launch.graph_cost.op_census`) can leave out what a
@@ -36,6 +38,7 @@ import dataclasses
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 WZONE_PREFIX = "wzone_"
 PZONE_PREFIX = "pzone_"
@@ -119,21 +122,25 @@ class LaunchLog:
     (``devices``).  While the block is open it also holds every output it
     recorded, so that no later allocation of the logged run can take a
     recorded output's addresses: an address range then names one
-    producer."""
+    producer.  A fake tensor has no address and is not held.  ``on_record``,
+    if set, is called with each recorded output."""
 
     def __init__(self):
         self.records: list[LaunchRecord] = []
         self.scopes: set[str] = set()
         self.devices: set[str] = set()
+        self.on_record = None
         self._held: list = []
 
 
 def _extent(t: torch.Tensor) -> tuple:
-    """``(address, bytes)`` spanned by ``t``'s elements."""
+    """``(address, bytes)`` spanned by ``t``'s elements; the address is
+    None for a fake tensor."""
+    addr = None if isinstance(t, FakeTensor) else t.data_ptr()
     if t.numel() == 0:
-        return (t.data_ptr(), 0)
+        return (addr, 0)
     span = sum((s - 1) * st for s, st in zip(t.shape, t.stride())) + 1
-    return (t.data_ptr(), span * t.element_size())
+    return (addr, span * t.element_size())
 
 
 @contextlib.contextmanager
@@ -165,4 +172,7 @@ def record_launch(kernel: str, inputs, output: torch.Tensor, **args):
     for log in logs:
         log.records.append(rec)
         log.devices.add(output.device.type)
-        log._held.append(output)
+        if not isinstance(output, FakeTensor):
+            log._held.append(output)
+        if log.on_record is not None:
+            log.on_record(output)

@@ -1,31 +1,41 @@
 """Dry run of the JAX package's cells (``launch/dryrun.py``): the crypto
-cells run for real on one card, the LM cells are planned on the host over
-the production meshes.
+cells run for real on one card and are planned on the production meshes,
+the LM cells are planned on the host over the production meshes.
 
 **Crypto cells** (``aegis_*``: ``_crypto_cell`` and the ``aegis_`` branch
 of JAX's ``run_cell``).  The JAX cell lowers the Aegis sequencer op for a
-pod slice's stacked batch from ``ShapeDtypeStruct``s and reads the compiled
-module's cost.  Here the cell runs for real, on seeded data: ``a`` uniform
-in [0, m), the twiddle planes random balanced int8 digits of the JAX
-shapes, whole on the one card (the JAX cell shards them over the 16×16
-mesh's ``"model"`` axis, so a cell here reads 16× a mesh device's plane
-bytes for the same multiply-adds).  ``rows`` is ``rows_per_core`` × 1
-device, as the JAX cell's are ``rows_per_core`` × its devices: under
-``--mesh`` a crypto record names the mesh and keeps one device's rows.
+pod slice's stacked batch, ``rows_per_core`` × its devices rows, from
+``ShapeDtypeStruct``s, rows sharded over the data axes and the twiddle
+planes over ``"model"`` on their output columns, and reads one device's
+compiled program.  The port has two forms of a cell:
+
+* *one device* (``--mesh`` not given, records ``__1``,
+  :func:`run_crypto_cell`): ``rows_per_core`` × 1 rows against the whole
+  planes, run for real on seeded data (``a`` uniform in [0, m), the planes
+  random balanced int8 digits of the JAX shapes);
+* *on a mesh* (``--mesh single|multi|both``, :func:`plan_crypto_cell`
+  through :func:`run_cell`): JAX's rows and JAX's specs, planned as the LM
+  cells are (below), the step a per-device region on rank 0's shards, and
+  the record JAX's; then rank 0's block of that program run for real
+  (:func:`run_share`, the record's ``share``: 128 rows against d ÷ 16
+  output columns on both production meshes).  ``--mesh one`` plans the
+  cell on 1 × 1 (its rows, the whole planes) for ``--redundancy``.
+
 The step is JAX's, zones included (``wzone_*``, ``pzone_3limb`` /
 ``pzone_4limb``, ``channel_i`` per BN254 channel, ``vpu_montgomery`` around
 ``rns_to_field``), through ``staged_transform_traced`` or
 ``staged_transform_scan`` on ``accum``, ``reduction``, ``kappa``.
 
-On CUDA the step is captured once as a graph (a ``GraphProbe`` whose warm-up
-runs under the cost model's op census), read node by node, validated
-(V1–V7), priced (:mod:`repro_torch.launch.graph_cost`) and replayed under
-torch.profiler for its device time.  On the CPU (``device="cpu"``) it runs
-once eagerly under the op census, and the launch log stands in for the
-graph.  Either way every output is checked: each channel against the int64
-oracle (a @ W) mod m, BN254's field digits against the plain
-``rns_to_field`` of the same channel outputs on the CPU; and the K1/K2
-nodes against the cell's fold profile.  A failed check raises.
+On CUDA a run (a one-device cell, a share) captures the step once as a
+graph (a ``GraphProbe`` whose warm-up runs under the cost model's op
+census), reads it node by node, validates it (V1–V7), prices it
+(:mod:`repro_torch.launch.graph_cost`) and replays it under torch.profiler
+for its device time.  On the CPU (``device="cpu"``) it runs once eagerly
+under the op census, and the launch log stands in for the graph.  Either
+way every output is checked: each channel against the int64 oracle (a @ W)
+mod m, BN254's field digits against the plain ``rns_to_field`` of the same
+channel outputs on the CPU; and the K1/K2 nodes against the cell's fold
+profile.  A failed check raises.
 
 **LM cells** (JAX's ``_lm_cell`` and the LM branch of ``run_cell``): every
 (arch × shape × mesh) cell planned without allocation.  A ``"fake"``
@@ -49,14 +59,17 @@ size is the fake group's.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch aegis_dilithium,aegis_bn254 --shape serve_256,serve_8k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --arch aegis_dilithium,aegis_bn254 --mesh both --device cpu
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --shape serve_256 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo_1b \\
         --shape train_4k --mesh both
 
 Records go to ``build/dryrun/`` (``--out`` elsewhere), one JSON file per
-cell, named as JAX names them (``{arch}__{shape}__{single|multi}{_tag}``);
-a crypto cell run without ``--mesh`` is ``__1``.
+cell, named as JAX names them (``{arch}__{shape}__{single|multi}{_tag}``),
+``__one`` for a 1 × 1 plan; a crypto cell run without ``--mesh`` is
+``__1``.  A record names a mesh only if it was planned on it.
 """
 from __future__ import annotations
 
@@ -74,7 +87,6 @@ import torch
 
 from repro_torch.configs import ARCHS, SHAPES, get_config, shape_applicable
 from repro_torch.core import limb_gemm as G
-from repro_torch.core import limbs as L
 from repro_torch.core import rns as R
 from repro_torch.core import validator as V
 from repro_torch.core import workloads as WK
@@ -87,6 +99,7 @@ from repro_torch.launch import mesh as MESH
 from repro_torch.launch import shardings as SH
 from repro_torch.launch import specs as SP
 from repro_torch.models import model as M
+from repro_torch.models.layers import from_local
 from repro_torch.models import steps as ST
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
@@ -113,16 +126,19 @@ def moduli(workload: str) -> tuple:
             else tuple(R.make_chain(9).moduli))
 
 
-def cell_inputs(workload: str, rows: int, d: int, seed: int = 0) -> tuple:
+def cell_inputs(workload: str, rows: int, d: int, seed: int = 0,
+                cols: int | None = None) -> tuple:
     """Seeded numpy inputs of a cell: ``a`` (rows, d) uint32 uniform in
     [0, Q) for Dilithium, (rows, d, 9) with channel c uniform in [0, m_c)
     for BN254; the twiddle planes (d, d, 3) or (9, d, d, 4) int8, random
-    balanced digits in [-128, 127]."""
+    balanced digits in [-128, 127].  ``cols`` draws a block of ``cols``
+    output columns of the planes, (d, cols, 3) or (9, d, cols, 4), as a
+    mesh device holds them (the same generator, no whole planes made)."""
     rng = np.random.default_rng(seed)
     ms = moduli(workload)
     a = np.stack([rng.integers(0, m, (rows, d), dtype=np.uint64)
                   for m in ms], axis=-1).astype(np.uint32)
-    shape = (len(ms), d, d, LIMBS[workload])
+    shape = (len(ms), d, d if cols is None else cols, LIMBS[workload])
     w = rng.integers(-128, 128, shape, dtype=np.int8)
     if workload == "dilithium":
         return a[..., 0], w[0]
@@ -198,28 +214,49 @@ def _checks(prof: dict) -> dict:
 
 
 def oracle_mod_np(a: np.ndarray, w: np.ndarray, m: int) -> np.ndarray:
-    """(a @ W) mod m exactly in int64 numpy, for residues a and W in
-    [0, m).  Where d·(m-1)² could leave int64, a is split into 16-bit
-    halves, so each partial sum stays below d·2**47.  W is laid out by
-    columns first, so numpy's integer product (no BLAS) reads both operands
-    in order."""
-    w = np.asfortranarray(w, dtype=np.int64)
-    a = a.astype(np.int64)
-    if a.shape[-1] * (m - 1) ** 2 < 2**63:
-        return (a @ w) % m
-    lo = (a & 0xFFFF) @ w % m
-    hi = (a >> 16) @ w % m
-    return (hi * 65536 + lo) % m
+    """(a @ W) mod m exactly, for residues a and W in [0, m), m < 2**32
+    (numpy arrays or CPU tensors).
+    Both are split into 16-bit halves; each of the four half products is a
+    float64 matrix product on the CPU whose sums stay below d·2**32 <=
+    2**53 (d <= 2**21), so every one is an exact integer; the four are
+    reduced mod m and recombined with 2**16 and 2**32 mod m in int64.  The
+    work runs as torch's CPU ops (threaded, with the BLAS every build
+    carries); the result is an int64 numpy array."""
+    a, w = (x.long() if isinstance(x, torch.Tensor)
+            else torch.from_numpy(np.asarray(x, dtype=np.int64))
+            for x in (a, w))
+    if a.shape[-1] > 2**21:
+        raise ValueError(f"oracle_mod_np is exact for d <= 2**21, got "
+                         f"{a.shape[-1]}")
+
+    def halves(x):
+        return (x & 0xFFFF).double(), (x >> 16).double()
+
+    def product(x, y):
+        return (x @ y).long() % m
+
+    (a_lo, a_hi), (w_lo, w_hi) = halves(a), halves(w)
+    middle = (product(a_lo, w_hi) + product(a_hi, w_lo)) % m
+    return ((product(a_lo, w_lo) + middle * ((1 << 16) % m) % m
+             + product(a_hi, w_hi) * ((1 << 32) % m) % m) % m).numpy()
+
+
+def _plane_values(w_planes: np.ndarray, m: int) -> torch.Tensor:
+    """The values of balanced signed digit planes (..., L) int8, mod m, in
+    int64: ``limbs.signed_digits_value`` as torch's threaded CPU ops."""
+    digits = torch.from_numpy(w_planes)
+    val = torch.zeros(digits.shape[:-1], dtype=torch.int64)
+    for k in range(digits.shape[-1] - 1, -1, -1):
+        val = (val << 8) + digits[..., k]
+    return val % m
 
 
 def channel_oracle(a: np.ndarray, w: np.ndarray, workload: str) -> np.ndarray:
     """Every channel of the cell against its int64 oracle: (rows, d) for
     Dilithium, (rows, d, 9) for BN254."""
     if workload == "dilithium":
-        return oracle_mod_np(a, L.signed_digits_value(w) % DILITHIUM_Q,
-                             DILITHIUM_Q)
-    return np.stack([oracle_mod_np(a[..., c], L.signed_digits_value(w[c]) % m,
-                                   m)
+        return oracle_mod_np(a, _plane_values(w, DILITHIUM_Q), DILITHIUM_Q)
+    return np.stack([oracle_mod_np(a[..., c], _plane_values(w[c], m), m)
                      for c, m in enumerate(moduli(workload))], axis=-1)
 
 
@@ -314,6 +351,85 @@ def _replay_ms(probe, dev, runs: int = 5) -> float:
     return float(np.median(times))
 
 
+def _run_block(workload: str, a_np, w_np, prof: dict, step, dev,
+               label: str) -> dict:
+    """Run the step on one block of inputs on ``dev`` and return what the
+    record says of it: on CUDA captured once as a graph (its warm-up under
+    the op census), read, validated, priced node by node and replayed
+    (once to instantiate, five times timed, twice or more under
+    torch.profiler); on the CPU run once eagerly under the op census, the
+    launch log standing in for the graph.  The K1/K2 nodes must equal the
+    fold profile and every output the oracles; any failed check raises."""
+    a = torch.as_tensor(a_np.astype(np.int64), device=dev)
+    w = torch.as_tensor(w_np, device=dev)
+    out = {"input_bytes": a.numel() * a.element_size() + w.numel()}
+    checks = _checks(prof)
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else MODEL_CARD
+    out["card"] = card
+    if dev.type == "cuda":
+        from repro_torch.core.scheduler.program import (GraphProbe,
+                                                        capture_pool)
+        pool = capture_pool(dev)
+        pool_before = pool.bytes()
+        t0 = time.perf_counter()
+        probe = GraphProbe(lambda: step(a, w), dev,
+                           warmup_mode=GC.OpCensus())
+        out["capture_s"] = time.perf_counter() - t0
+        out["read_s"] = probe.read_s
+        out["pool_bytes"] = {k: v - pool_before[k]
+                             for k, v in pool.bytes().items()}
+        rep = V.validate_probe(probe, **checks)
+        cost = GC.program_cost(probe, card=card)
+        out["edges"] = rep.graph["edges"]
+        out["nodes"] = rep.graph["nodes"]
+    else:
+        t0 = time.perf_counter()
+        census = GC.op_census(step, a, w)
+        out["capture_s"] = time.perf_counter() - t0
+        nodes, edges = V.record_nodes(census.log.records)
+        rep = V.check(census.log.records, nodes, edges,
+                      scopes=census.log.scopes, **checks)[0]
+        cost = GC.log_cost(census, card=card)
+        out["edges"] = {"full": len(edges), "programmatic": 0}
+        out["nodes"] = None
+    out["v_codes"] = sorted({v[0] for v in rep.violations})
+    _check(rep.ok, f"{label}: the validator flags {rep.violations[:4]}")
+    kernel_nodes = cost["kernel_nodes"]
+    _check({K1: kernel_nodes[K1], K2: kernel_nodes[K2]} == prof["launches"]
+           and (rep.n_dots, rep.n_folds) == (kernel_nodes[K1],
+                                              kernel_nodes[K2])
+           and kernel_nodes[GC.K3] == 0,
+           f"{label}: K1/K2 nodes {kernel_nodes}, the fold profile "
+           f"{prof['launches']}")
+    out.update(kernel_nodes=kernel_nodes, aten_ops=cost["aten_ops"],
+               aten_top=cost["aten_top"],
+               n_barriers=rep.n_barriers, cost=cost["cost"],
+               cost_by_kernel=cost["cost_by_kernel"],
+               roofline=cost["roofline"],
+               predicted_device_ms=cost["predicted_device_s"] * 1e3)
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        probe.replay()                          # instantiates the graph
+        torch.cuda.synchronize(dev)
+        out["instantiate_s"] = time.perf_counter() - t0
+        out["replay_ms"] = _replay_ms(probe, dev)
+        profiled = _profiled_replay(probe, dev, prof["launches"])
+        out.update(profiled, replays=1 + 5 + profiled["replays"])
+        out["empty_kernel_ms"] = empty_kernel_ms(dev)
+        k_total = sum(v for v in kernel_nodes.values() if v)
+        out["launch_floor_ms"] = k_total * out["empty_kernel_ms"]
+        out["profiled_over_predicted"] = (out["device_ms"]
+                                          / out["predicted_device_ms"])
+        result = probe.out
+    else:
+        result = census.out
+        out.update(device_ms=None, replay_ms=None, launch_floor_ms=None)
+    out.update(_check_outputs(result, a_np, w_np, workload, label))
+    out["exact"] = True
+    return out
+
+
 def run_crypto_cell(arch: str, shape: str, *, accum: str = "fp32_mantissa",
                     reduction: str = "eager", kappa: int | None = None,
                     scan_staging: bool = False, tag: str = "",
@@ -341,77 +457,11 @@ def run_crypto_cell(arch: str, shape: str, *, accum: str = "fp32_mantissa",
               "workload": workload, "accum": accum, "reduction": reduction,
               "kappa": kappa, "scan_staging": scan_staging,
               "fold_profile": prof}
-    label = f"{arch} {shape}"
     a_np, w_np = cell_inputs(workload, rows, d)
-    a = torch.as_tensor(a_np.astype(np.int64), device=dev)
-    w = torch.as_tensor(w_np, device=dev)
-    record["input_bytes"] = a.numel() * a.element_size() + w.numel()
     step = make_step(workload, accum=accum, reduction=reduction, kappa=kappa,
                      scan_staging=scan_staging)
-    checks = _checks(prof)
-    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
-        else MODEL_CARD
-    record["card"] = card
-    if dev.type == "cuda":
-        from repro_torch.core.scheduler.program import (GraphProbe,
-                                                        capture_pool)
-        pool = capture_pool(dev)
-        pool_before = pool.bytes()
-        t0 = time.perf_counter()
-        probe = GraphProbe(lambda: step(a, w), dev,
-                           warmup_mode=GC.OpCensus())
-        record["capture_s"] = time.perf_counter() - t0
-        record["read_s"] = probe.read_s
-        record["pool_bytes"] = {k: v - pool_before[k]
-                                for k, v in pool.bytes().items()}
-        rep = V.validate_probe(probe, **checks)
-        cost = GC.program_cost(probe, card=card)
-        record["edges"] = rep.graph["edges"]
-        record["nodes"] = rep.graph["nodes"]
-    else:
-        t0 = time.perf_counter()
-        census = GC.op_census(step, a, w)
-        record["capture_s"] = time.perf_counter() - t0
-        nodes, edges = V.record_nodes(census.log.records)
-        rep = V.check(census.log.records, nodes, edges,
-                      scopes=census.log.scopes, **checks)[0]
-        cost = GC.log_cost(census, card=card)
-        record["edges"] = {"full": len(edges), "programmatic": 0}
-        record["nodes"] = None
-    record["v_codes"] = sorted({v[0] for v in rep.violations})
-    _check(rep.ok, f"{label}: the validator flags {rep.violations[:4]}")
-    kernel_nodes = cost["kernel_nodes"]
-    _check({K1: kernel_nodes[K1], K2: kernel_nodes[K2]} == prof["launches"]
-           and (rep.n_dots, rep.n_folds) == (kernel_nodes[K1],
-                                              kernel_nodes[K2])
-           and kernel_nodes[GC.K3] == 0,
-           f"{label}: K1/K2 nodes {kernel_nodes}, the fold profile "
-           f"{prof['launches']}")
-    record.update(kernel_nodes=kernel_nodes, aten_ops=cost["aten_ops"],
-                  aten_top=cost["aten_top"],
-                  n_barriers=rep.n_barriers, cost=cost["cost"],
-                  cost_by_kernel=cost["cost_by_kernel"],
-                  roofline=cost["roofline"],
-                  predicted_device_ms=cost["predicted_device_s"] * 1e3)
-    if dev.type == "cuda":
-        t0 = time.perf_counter()
-        probe.replay()                          # instantiates the graph
-        torch.cuda.synchronize(dev)
-        record["instantiate_s"] = time.perf_counter() - t0
-        record["replay_ms"] = _replay_ms(probe, dev)
-        profiled = _profiled_replay(probe, dev, prof["launches"])
-        record.update(profiled, replays=1 + 5 + profiled["replays"])
-        record["empty_kernel_ms"] = empty_kernel_ms(dev)
-        k_total = sum(v for v in kernel_nodes.values() if v)
-        record["launch_floor_ms"] = k_total * record["empty_kernel_ms"]
-        record["profiled_over_predicted"] = (record["device_ms"]
-                                             / record["predicted_device_ms"])
-        out = probe.out
-    else:
-        out = census.out
-        record.update(device_ms=None, replay_ms=None, launch_floor_ms=None)
-    record.update(_check_outputs(out, a_np, w_np, workload, label))
-    record["exact"] = True
+    record.update(_run_block(workload, a_np, w_np, prof, step, dev,
+                             f"{arch} {shape}"))
     record["wall_s"] = time.perf_counter() - t_start
     return record
 
@@ -533,6 +583,193 @@ def _local_bytes(tree) -> int:
     return 0
 
 
+# --- the crypto cells on a mesh ------------------------------------------------
+
+
+def _plan_keys(census, total: dict, arg_bytes: int, out_bytes: int,
+               n_chips: int) -> dict:
+    """JAX's record keys of one device's plan: ``memory`` (argument and
+    output bytes as given, temp the census's peak of live bytes, generated
+    code 0), ``bytes_per_device``, ``cost_raw`` and ``cost_corrected`` (the
+    same numbers: the census walks every op, so there is no trip count to
+    correct) of ``total``, ``collectives_naive`` and ``roofline`` (priced
+    against the H100's data sheet, with ``n_chips``)."""
+    coll = GC.collective_bytes(census)
+    flops = float(total["tensor_ops"] + total["cuda_core_ops"]
+                  + total["bf16_ops"])
+    return {
+        "memory": {"argument_size_in_bytes": arg_bytes,
+                   "output_size_in_bytes": out_bytes,
+                   "temp_size_in_bytes": census.peak,
+                   "generated_code_size_in_bytes": 0},
+        "memory_note": GENERATED_CODE_NOTE,
+        "bytes_per_device": arg_bytes + census.peak,
+        "cost_raw": {"flops": flops, "bytes_accessed": float(total["bytes"])},
+        "cost_corrected": {"flops": flops, "bytes": float(total["bytes"]),
+                           **{k: float(coll[k]) for k in GC.COLLECTIVES},
+                           "collective_bytes": float(coll["total"])},
+        "collectives_naive": coll,
+        "roofline": dict(GC.roofline_terms(
+            total, card=MODEL_CARD, coll_bytes=coll["total"] * n_chips,
+            n_chips=n_chips), n_chips=n_chips)}
+
+
+
+def crypto_specs(workload: str, mesh) -> dict:
+    """JAX's specs of a crypto cell on ``mesh`` (``_crypto_cell``): ``a``'s
+    rows over the data axes (``("pod", "data")`` on the multi-pod mesh,
+    JAX's ``dp_spec``), the twiddle planes over ``model`` on their
+    output-column dim (dim 1 of Dilithium's (d, d, 3), dim 2 of BN254's
+    (9, d, d, 4)); and the output as a device's region leaves it, rows over
+    the data axes and columns over ``model`` (JAX's compiled output
+    sharding)."""
+    dp = MESH.data_axes(mesh)
+    rows = dp if len(dp) > 1 else dp[0]
+    if workload == "dilithium":
+        return {"a": SH.P(rows, None), "w": SH.P(None, "model", None),
+                "out": SH.P(rows, "model")}
+    return {"a": SH.P(rows, None, None), "w": SH.P(None, None, "model", None),
+            "out": SH.P(rows, "model", None)}
+
+
+def block_shapes(workload: str, shape: str, mesh) -> dict:
+    """The global shapes of a cell on ``mesh`` (``rows_per_core`` × its
+    devices rows) and rank 0's block of ``a`` and of the planes."""
+    spec = CRYPTO_SHAPES[shape]
+    rows, d = spec["rows_per_core"] * mesh.size, spec["d"]
+    limbs, c = LIMBS[workload], len(moduli(workload))
+    whole = ({"a": (rows, d), "w": (d, d, limbs)} if workload == "dilithium"
+             else {"a": (rows, d, c), "w": (c, d, d, limbs)})
+    specs = crypto_specs(workload, mesh)
+    return {"rows": rows, "d": d, "global": whole,
+            "block": {k: SH.local_shape(v, specs[k], mesh)
+                      for k, v in whole.items()}}
+
+
+def plan_crypto_cell(arch: str, shape: str, mesh: MESH.Mesh, *,
+                     accum: str = "fp32_mantissa", reduction: str = "eager",
+                     kappa: int | None = None, scan_staging: bool = False,
+                     tag: str = "") -> dict:
+    """Plan one crypto cell on ``mesh`` without allocation, as JAX's
+    ``_crypto_cell`` lowers it and its ``run_cell`` reads it.  The cell has
+    ``rows_per_core`` × the mesh's devices rows; under a ``"fake"`` process
+    group of the mesh's size, ``a`` is a DTensor sharded over the data
+    axes on its rows and the twiddle planes one sharded over ``model`` on
+    their output columns (:func:`crypto_specs`), each local shard rank 0's,
+    a fake tensor.  The step runs as a per-device region on those shards:
+    ``to_local``, the staged transform of every channel and (BN254)
+    ``rns_to_field``, then ``from_local`` of what JAX's step returns (the
+    residues; BN254's field digits), all under the sharded census.  The
+    ATen ops are priced on the shards, the K1/K2 calls from the launch log
+    by ``graph_cost.node_cost`` (their plain versions are not priced), and
+    every collective DTensor issues is counted (the region issues none).
+
+    The record has JAX's keys, as the LM record has (:func:`run_lm_cell`:
+    ``memory``, ``bytes_per_device``, ``cost_raw``, ``cost_corrected``,
+    ``collectives_naive``, ``roofline`` with ``n_chips``, ``compile_s``),
+    with ``rows`` and ``d`` as JAX's, the mesh planned on, the block
+    shapes of ``a``, the planes and the output, the fold profile, the K1/K2
+    calls a device (``kernel_nodes``, which must equal the profile's) and
+    one device's predicted time.  A cell that raises is ``status:
+    "error"``.  :func:`run_cell` adds rank 0's block run for real
+    (``share``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    t0 = time.perf_counter()
+    workload = WORKLOADS[arch]
+    n_chips = mesh.size
+    record = {"arch": arch, "shape": shape,
+              "mesh": "x".join(map(str, mesh.devices.shape)),
+              "multi_pod": "pod" in mesh.axis_names, "status": "ok",
+              "tag": tag, "device": LM_NOTE, "workload": workload,
+              "accum": accum, "reduction": reduction, "kappa": kappa,
+              "scan_staging": scan_staging}
+    try:
+        shapes = block_shapes(workload, shape, mesh)
+        record.update(rows=shapes["rows"], d=shapes["d"])
+        prof = cell_profile(workload, shapes["d"], accum=accum,
+                            reduction=reduction, kappa=kappa,
+                            scan_staging=scan_staging)
+        record["fold_profile"] = prof
+        specs = crypto_specs(workload, mesh)
+        step = make_step(workload, accum=accum, reduction=reduction,
+                         kappa=kappa, scan_staging=scan_staging)
+        dtypes = {"a": torch.int64, "w": torch.int8}
+        with fake_world(mesh) as dmesh, FakeTensorMode():
+            placer = _Placer(mesh, dmesh)
+            a, w = (placer.tensor(torch.empty(shapes["global"][k],
+                                              dtype=dtypes[k],
+                                              device="meta"), specs[k])
+                    for k in ("a", "w"))
+            census = GC.ShardedOpCensus()
+            with census:
+                local = step(a.to_local(), w.to_local())
+                if workload == "bn254":
+                    local = local[1]            # JAX's step returns these
+                cuts = SH.shard_sizes(specs["out"], mesh) + [1]
+                out = from_local(local, dmesh,
+                                  SH.placements(specs["out"], dmesh),
+                                  [n * c for n, c in zip(local.shape, cuts)])
+            record["shapes"] = {"a": list(a.to_local().shape),
+                                "w": list(w.to_local().shape),
+                                "out": list(local.shape)}
+            out_bytes = _local_bytes(out)
+            del out, local
+            arg_bytes = placer.read_bytes(census)
+        cost = GC.log_cost(census, card=MODEL_CARD)
+        kernel_nodes = cost["kernel_nodes"]
+        _check({K1: kernel_nodes[K1], K2: kernel_nodes[K2]}
+               == prof["launches"] and kernel_nodes[GC.K3] == 0,
+               f"{arch} {shape} on {record['mesh']}: K1/K2 calls a device "
+               f"{kernel_nodes}, the fold profile {prof['launches']}")
+        record.update(_plan_keys(census, cost["cost"], arg_bytes, out_bytes,
+                                 n_chips))
+        record.update(kernel_nodes=kernel_nodes, aten_ops=cost["aten_ops"],
+                      aten_top=cost["aten_top"],
+                      cost_by_kernel=cost["cost_by_kernel"],
+                      predicted_device_ms=cost["predicted_device_s"] * 1e3)
+        record["compile_s"] = time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001 - the cell's record says why
+        record.update(status="error", error=f"{type(e).__name__}: {e}",
+                      trace=traceback.format_exc()[-2000:])
+    return record
+
+
+def run_share(arch: str, shape: str, mesh: MESH.Mesh, *,
+              accum: str = "fp32_mantissa", reduction: str = "eager",
+              kappa: int | None = None, scan_staging: bool = False,
+              device=None) -> dict:
+    """Rank 0's block of the cell's program on ``mesh``, run for real on
+    ``device`` (CUDA unless ``"cpu"``): its rows of ``a`` (rows_per_core ×
+    devices ÷ data shards: 128 on both production meshes) against its
+    block of the planes (d ÷ ``model`` output columns), drawn from the seed
+    at the block's shapes (:func:`cell_inputs` with ``cols``), through the
+    cell's step, captured, validated, priced, profiled and checked as
+    :func:`run_crypto_cell` runs its cell; every output against (a @ W)
+    mod m and BN254's digits against the plain ``rns_to_field``.  Returns
+    the block's shapes, its configuration and the block run's keys."""
+    t_start = time.perf_counter()
+    dev = resolve_device(device)
+    workload = WORKLOADS[arch]
+    shapes = block_shapes(workload, shape, mesh)
+    block = shapes["block"]
+    rows, d = block["a"][0], shapes["d"]
+    cols = block["w"][1] if workload == "dilithium" else block["w"][2]
+    prof = cell_profile(workload, d, accum=accum, reduction=reduction,
+                        kappa=kappa, scan_staging=scan_staging)
+    share = {"mesh": "x".join(map(str, mesh.devices.shape)),
+             "device": str(dev), "rows": rows, "cols": cols,
+             "shapes": {k: list(v) for k, v in block.items()},
+             "config": {"accum": accum, "reduction": reduction,
+                        "kappa": kappa, "scan_staging": scan_staging},
+             "fold_profile": prof}
+    a_np, w_np = cell_inputs(workload, rows, d, cols=cols)
+    step = make_step(workload, **share["config"])
+    share.update(_run_block(workload, a_np, w_np, prof, step, dev,
+                            f"{arch} {shape} share of {share['mesh']}"))
+    share["wall_s"] = time.perf_counter() - t_start
+    return share
+
+
 def _lm_cell(arch: str, shape: str, mesh: MESH.Mesh, rules: SH.ShardingRules,
              placer: _Placer, overrides: dict | None = None):
     """The cell's step as ``run()`` over DTensor inputs that ``placer`` made
@@ -646,27 +883,8 @@ def run_lm_cell(arch: str, shape: str, *, multi_pod: bool = False,
             out_bytes = _local_bytes(out)
             del out
             arg_bytes = placer.read_bytes(census)
-        total = census.aten()
-        coll = GC.collective_bytes(census)
-        record["memory"] = {
-            "argument_size_in_bytes": arg_bytes,
-            "output_size_in_bytes": out_bytes,
-            "temp_size_in_bytes": census.peak,
-            "generated_code_size_in_bytes": 0}
-        record["memory_note"] = GENERATED_CODE_NOTE
-        record["bytes_per_device"] = arg_bytes + census.peak
-        flops = total["tensor_ops"] + total["cuda_core_ops"] + \
-            total["bf16_ops"]
-        record["cost_raw"] = {"flops": float(flops),
-                              "bytes_accessed": float(total["bytes"])}
-        record["cost_corrected"] = {
-            "flops": float(flops), "bytes": float(total["bytes"]),
-            **{k: float(coll[k]) for k in GC.COLLECTIVES},
-            "collective_bytes": float(coll["total"])}
-        record["collectives_naive"] = coll
-        record["roofline"] = dict(GC.roofline_terms(
-            total, card=MODEL_CARD, coll_bytes=coll["total"] * n_chips,
-            n_chips=n_chips), n_chips=n_chips)
+        record.update(_plan_keys(census, census.aten(), arg_bytes,
+                                 out_bytes, n_chips))
         record["aten_ops"] = len(census.ops)
         record["aten_top"] = dict(sorted(
             census.by_op().items(), key=lambda kv: -kv[1]["bytes"])[:6])
@@ -682,22 +900,37 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool | None = None,
              kappa: int | None = None, accum: str = "fp32_mantissa",
              reduction: str = "eager", scan_staging: bool = False,
              overrides: dict | None = None, tag: str = "",
-             device=None) -> dict:
-    """JAX's ``run_cell``: an ``aegis_*`` arch is a crypto cell, run on
-    ``device`` (:func:`run_crypto_cell`, which raises on a failed check);
-    with ``multi_pod`` set its record names that production mesh and keeps
-    one device's rows.  Any other arch is an LM cell, planned on the host
-    over the production mesh (``multi_pod`` None is the single-pod mesh,
-    JAX's default); ``device`` does not apply to it."""
+             device=None, share: dict | None = None) -> dict:
+    """JAX's ``run_cell``.  An ``aegis_*`` arch is a crypto cell: with
+    ``multi_pod`` None, the one-device cell run on ``device``
+    (:func:`run_crypto_cell`, which raises on a failed check); with
+    ``multi_pod`` set, the cell planned on that production mesh
+    (:func:`plan_crypto_cell`) and rank 0's block of it run for real on
+    ``device`` under ``share`` (:func:`run_share`, which raises on a failed
+    check).  Both production meshes give a device the same block (128
+    rows), so a ``share`` from one may be passed for the other: it is taken
+    if its block shapes and configuration are this cell's, and refused
+    otherwise.  Any other arch is an LM cell, planned on the host over the
+    production mesh (``multi_pod`` None is the single-pod mesh, JAX's
+    default); ``device`` does not apply to it."""
     if arch.startswith("aegis_"):
-        rec = run_crypto_cell(arch, shape, accum=accum, reduction=reduction,
-                              kappa=kappa, scan_staging=scan_staging,
-                              tag=tag, device=device)
-        if multi_pod is not None:
-            mesh = MESH.make_production_mesh(multi_pod=multi_pod)
-            rec.update(mesh="x".join(map(str, mesh.devices.shape)),
-                       multi_pod=multi_pod,
-                       mesh_rows="one device's rows (rows_per_core × 1)")
+        kw = dict(accum=accum, reduction=reduction, kappa=kappa,
+                  scan_staging=scan_staging)
+        if multi_pod is None:
+            return run_crypto_cell(arch, shape, tag=tag, device=device, **kw)
+        mesh = MESH.make_production_mesh(multi_pod=multi_pod)
+        rec = plan_crypto_cell(arch, shape, mesh, tag=tag, **kw)
+        if rec["status"] == "ok":
+            if share is None:
+                share = run_share(arch, shape, mesh, device=device, **kw)
+            block = {k: rec["shapes"][k] for k in ("a", "w")}
+            if ({k: share["shapes"][k] for k in block} != block
+                    or share["config"] != kw):
+                raise ValueError(f"{arch} {shape} on {rec['mesh']}: the "
+                                 f"share given ({share['shapes']}, "
+                                 f"{share['config']}) is not this cell's "
+                                 f"block ({block}, {kw})")
+            rec["share"] = share
         return rec
     return run_lm_cell(arch, shape, multi_pod=bool(multi_pod),
                        overrides=overrides, tag=tag)
@@ -709,10 +942,16 @@ ONE_MESH = MESH.make_mesh((1, 1), ("data", "model"), [torch.device("meta")])
 
 
 def redundancy(out_dir: Path) -> dict:
-    """Per LM cell with a 1x1 record (``--mesh one``) in ``out_dir``: for
-    each production mesh recorded, per-device flops × devices over the 1x1
+    """Per cell with a 1x1 record (``--mesh one``) in ``out_dir``: for each
+    production mesh recorded, per-device flops × devices over the 1x1
     plan's flops (1.0 when the devices split the work without repeating
-    any of it), with the flops of both."""
+    any of it), with the flops of both.  A crypto cell's rows grow with
+    the mesh (``rows_per_core`` × devices), so its flops are taken per
+    row."""
+    def work(rec):
+        return rec["cost_raw"]["flops"] / (
+            rec["rows"] if rec["arch"] in WORKLOADS else 1)
+
     out = {}
     for one in sorted(out_dir.glob("*__one.json")):
         base = json.loads(one.read_text())
@@ -728,7 +967,7 @@ def redundancy(out_dir: Path) -> dict:
                 continue
             flops, n = rec["cost_raw"]["flops"], rec["roofline"]["n_chips"]
             cell[tag] = {"flops_per_device": flops,
-                         "ratio": flops * n / cell["one_flops"]}
+                         "ratio": work(rec) * n / work(base)}
         out[f"{base['arch']}/{base['shape']}"] = cell
     return out
 
@@ -746,19 +985,26 @@ def _parse_overrides(items: list) -> dict:
 
 def _print_record(rec: dict, mesh_tag: str):
     roof = rec.get("roofline", {})
-    if rec["arch"].startswith("aegis_"):
-        dev_ms = rec.get("device_ms")
-        measured = "not measured" if dev_ms is None else f"{dev_ms:.4g}ms"
-        predicted = rec.get("predicted_device_ms", math.nan)
-        nodes = rec.get("kernel_nodes", {})
-        print(f"[{rec['status']:7s}] {rec['arch']:16s} {rec['shape']:10s} "
-              f"{mesh_tag:6s} dom={roof.get('dominant', '-'):8s} "
-              f"K1/K2={nodes.get(K1, '-')}/{nodes.get(K2, '-')} "
-              f"predicted={predicted:.4g}ms device={measured} "
-              f"capture={rec.get('capture_s', 0):.2f}s "
-              f"{rec.get('error', '')[:120]}", flush=True)
-        return
     coll = rec.get("collectives_naive", {})
+    if rec["arch"].startswith("aegis_"):
+        run = rec.get("share", rec)     # a plan's block runs under share
+        dev_ms = run.get("device_ms")
+        measured = "not measured" if dev_ms is None else f"{dev_ms:.4g}ms"
+        predicted = run.get("predicted_device_ms", math.nan)
+        nodes = rec.get("kernel_nodes", {})
+        planned = (f"bytes/dev={rec.get('bytes_per_device', '-')} "
+                   f"coll={coll.get('total', '-')} "
+                   f"plan={rec.get('compile_s', 0):.1f}s "
+                   if "memory" in rec else "")
+        print(f"[{rec['status']:7s}] {rec['arch']:16s} {rec['shape']:10s} "
+              f"{mesh_tag:6s} rows={rec.get('rows', '-')} "
+              f"dom={roof.get('dominant', '-'):8s} "
+              f"K1/K2={nodes.get(K1, '-')}/{nodes.get(K2, '-')} {planned}"
+              f"predicted={predicted:.4g}ms device={measured} "
+              + (f"capture={run['capture_s']:.2f}s " if "capture_s" in run
+                 else "")
+              + rec.get("error", "")[:120], flush=True)
+        return
     print(f"[{rec['status']:7s}] {rec['arch']:22s} {rec['shape']:12s} "
           f"{mesh_tag:6s} dom={roof.get('dominant', '-'):10s} "
           f"bytes/dev={rec.get('bytes_per_device', '-')} "
@@ -780,14 +1026,17 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     choices=["single", "multi", "both", "one"],
                     help="production mesh: 16x16 (single), 2x16x16 (multi) "
-                         "or both; default single for the LM cells, the "
-                         "card alone for the crypto cells; 'one' plans the "
-                         "LM cells on a 1x1 mesh, the whole work on one "
-                         "device (records __one, read by --redundancy)")
+                         "or both, each cell planned on it (a crypto cell "
+                         "also runs one device's block on --device); "
+                         "default single for the LM cells, the one-device "
+                         "run for the crypto cells; 'one' plans a cell on "
+                         "a 1x1 mesh, the whole work on one device (records "
+                         "__one, read by --redundancy)")
     ap.add_argument("--redundancy", default=None, metavar="DIR",
-                    help="print, from the records in DIR, each LM cell's "
+                    help="print, from the records in DIR, each cell's "
                          "per-device flops x devices over its 1x1 plan's "
-                         "flops, and run no cell")
+                         "flops (per row for the crypto cells), and run no "
+                         "cell")
     ap.add_argument("--accum", default="fp32_mantissa",
                     choices=["fp32_mantissa", "int32_native"])
     ap.add_argument("--reduction", default="eager", choices=["eager", "lazy"])
@@ -798,8 +1047,10 @@ def main(argv=None):
                     help="ArchConfig overrides of the LM cells, e.g. "
                          "n_layers=2 or _moe_replicate=true")
     ap.add_argument("--device", default="cuda",
-                    help="the crypto cells' device: 'cuda' (default), "
-                         "'cuda:N' or 'cpu'; the LM cells run on the host")
+                    help="the device of the crypto cells' runs (the "
+                         "one-device cell, a mesh cell's block): 'cuda' "
+                         "(default), 'cuda:N' or 'cpu'; every plan runs on "
+                         "the host")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None,
                     help=f"record directory (default {OUT_DIR})")
@@ -833,30 +1084,35 @@ def main(argv=None):
         shapes = valid if args.shape == "all" else [
             s for s in args.shape.split(",") if s in valid]
         for shape in shapes:
+            share = None        # one device's block, the same on both meshes
             for multi in meshes:
+                mesh_tag = {None: "1", False: "single", True: "multi",
+                            "one": "one"}[multi]
                 if arch in WORKLOADS:
+                    kw = dict(accum=args.accum, reduction=args.reduction,
+                              kappa=args.kappa,
+                              scan_staging=args.scan_staging, tag=args.tag)
                     try:
-                        rec = run_cell(arch, shape, multi_pod=multi,
-                                       accum=args.accum,
-                                       reduction=args.reduction,
-                                       kappa=args.kappa,
-                                       scan_staging=args.scan_staging,
-                                       tag=args.tag, device=args.device)
+                        if multi == "one":
+                            rec = plan_crypto_cell(arch, shape, ONE_MESH,
+                                                   **kw)
+                        else:
+                            rec = run_cell(arch, shape, multi_pod=multi,
+                                           device=args.device, share=share,
+                                           **kw)
+                            share = rec.get("share")
                     except Exception as e:  # noqa: BLE001 - its record
-                        rec = {"arch": arch, "shape": shape, "mesh": "1",
-                               "status": "error", "tag": args.tag,
+                        rec = {"arch": arch, "shape": shape,
+                               "mesh": mesh_tag, "status": "error",
+                               "tag": args.tag,
                                "error": f"{type(e).__name__}: {e}",
                                "trace": traceback.format_exc()[-2000:]}
-                    mesh_tag = {None: "1", False: "single",
-                                True: "multi"}[multi]
                 elif multi == "one":
                     rec = run_lm_cell(arch, shape, overrides=overrides,
                                       tag=args.tag, mesh=ONE_MESH)
-                    mesh_tag = "one"
                 else:
                     rec = run_cell(arch, shape, multi_pod=bool(multi),
                                    overrides=overrides, tag=args.tag)
-                    mesh_tag = "multi" if multi else "single"
                 failed += rec["status"] == "error"
                 suffix = f"_{args.tag}" if args.tag else ""
                 path = out_dir / f"{arch}__{shape}__{mesh_tag}{suffix}.json"

@@ -452,8 +452,13 @@ class ShardedOpCensus(OpCensus):
     that some op took as an argument, so a caller can tell which of its
     inputs the program read, through a view or not (JAX's jit drops the
     arguments it never reads).  Memory: every tensor an op creates (not a view, not an input
-    returned in place) counts as live until it is freed; ``peak`` is the
-    most live at once, beyond whatever existed before the census."""
+    returned in place, not on ``meta``, which holds no data) counts as
+    live until it is freed; ``peak`` is the most live at once, beyond
+    whatever existed before the census.  Inside
+    a K1/K2/K3 wrapper (a per-device region's kernels, run on fake shards)
+    nothing is priced or counted live but the wrapper's output: the kernel
+    is priced from the launch log, as :class:`OpCensus` leaves it, and its
+    plain version's temporaries are no device's memory."""
 
     def __init__(self):
         super().__init__()
@@ -469,10 +474,12 @@ class ShardedOpCensus(OpCensus):
         self._quiet = _quiet_propagation(self)
         self._quiet.__enter__()
         try:
-            return super().__enter__()
+            entered = super().__enter__()
         except BaseException:
             self._quiet.__exit__(None, None, None)
             raise
+        self.log.on_record = self._track_output
+        return entered
 
     def __exit__(self, *exc):
         try:
@@ -483,17 +490,19 @@ class ShardedOpCensus(OpCensus):
     def _release(self, nbytes: int):
         self.live -= nbytes
 
+    def _track_output(self, t):
+        nbytes = t.numel() * t.element_size()
+        self.live += nbytes
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(t, self._release, nbytes)
+
     def _track(self, func, args, out):
         if func.is_view:
             return
         inputs = {id(t) for t in _tensors(args)}
         for t in _tensors(out):
-            if id(t) in inputs:
-                continue
-            nbytes = t.numel() * t.element_size()
-            self.live += nbytes
-            self.peak = max(self.peak, self.live)
-            weakref.finalize(t, self._release, nbytes)
+            if id(t) not in inputs and t.device.type != "meta":
+                self._track_output(t)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, self._dtensor) for t in types):
@@ -504,6 +513,8 @@ class ShardedOpCensus(OpCensus):
             return out
         self.read.update(storage_key(t) for t in _tensors(
             [args, list(kwargs.values())]))
+        if zones.in_kernel_call():
+            return out
         kind = collective_kind(func)
         if kind is None:
             c = aten_cost(func, args, kwargs, out)

@@ -7,20 +7,31 @@ residual carried to the next step — Seide et al. / EF-SGD) retains
 convergence while cutting those bytes 4×.  The quantiser is per-tensor
 symmetric.
 
-Single controller, as JAX's ``shard_map`` is: :func:`compressed_grad_sync`
-takes the mesh and the axis and runs every position along ``axis`` (the
-other axes at index 0) from this one process, each on its own device.  Each
-position quantises its replica of the gradient there; its int8 codes go to
-the first position's device and are widened to int32 only there, summed in
-position order — the same sum as JAX's int32 ``psum``, at a quarter of its
+:func:`compressed_grad_sync` has two forms, chosen by the type of the mesh
+it is given, as JAX's ``shard_map`` runs one function on whatever mesh the
+program has:
+
+* a :class:`repro_torch.launch.mesh.Mesh` — *single controller*: this one
+  process runs every position along ``axis`` (the other axes at index 0),
+  each on its own device.  Each position quantises its replica of the
+  gradient there; its int8 codes go to the first position's device and are
+  widened to int32 only there, summed in position order, and the result is
+  copied back to every position.  The returned tensors are the first
+  position's;
+* a ``torch.distributed`` ``DeviceMesh`` (as ``launch.mesh.device_mesh``
+  builds it for ``launch.train.build(mesh=)``) — *process group*: each
+  rank runs its own part over the subgroup of ``axis``.  It quantises its
+  own replica, the subgroup all-gathers the int8 codes as int8, and every
+  rank widens them to int32 and sums them in rank order; ``max(scale)`` is
+  an all-reduce MAX.  The new residual stays on its rank.  A DTensor leaf,
+  replicated over ``axis`` (any placement on the other axes), syncs its
+  local shard and comes back a DTensor of the same placements.
+
+Either way the result is ``sum · max(scale) / n`` in float32 in JAX's order
+(n the axis size), the same sum as JAX's int32 ``psum`` at a quarter of its
 bytes on the wire (JAX psums ``codes.astype(int32)``, 4 bytes an element,
-although its docstring promises an int8 all-reduce) — and the result,
-``sum · max(scale) / n`` in float32 in JAX's order, is copied back to every
-position.  Inputs and outputs are replicated, as JAX's ``P()`` specs are;
-the returned tensors are the first position's.  No process group: NCCL
-refuses two ranks on one card, and the port's cluster already runs one
-process over a device list; a process-group form waits for a machine with
-more cards.
+although its docstring promises an int8 all-reduce).  Inputs and outputs
+are replicated over ``axis``, as JAX's ``P()`` specs are.
 """
 from __future__ import annotations
 
@@ -48,7 +59,9 @@ def dequantize_int8(codes, scale):
 
 
 def init_error_state(grads: dict) -> dict:
-    return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    """float32 zeros of each gradient's shape on its device (a DTensor's at
+    its placements)."""
+    return {k: torch.zeros_like(g, dtype=torch.float32)
             for k, g in grads.items()}
 
 
@@ -80,14 +93,74 @@ def _sync_leaf(g, err, devices: list):
     return synced.to(g.dtype), new_err
 
 
+def _sync_leaf_group(g, err, dmesh, axis: str):
+    """One leaf on this rank of the process group of ``dmesh``'s ``axis``:
+    its error-feedback quantisation, the int8 codes of every rank of the
+    axis all-gathered as int8, widened and summed in rank order, the
+    largest scale by an all-reduce MAX.  Returns (synced in g's dtype, the
+    new residual), both on this rank."""
+    import torch.distributed as dist
+    group = dmesh.get_group(axis)
+    n = dist.get_world_size(group)
+    codes, scale, new_err = _ef_quantize(g, err)
+    gathered = [torch.empty_like(codes) for _ in range(n)]
+    dist.all_gather(gathered, codes, group=group)
+    total = gathered[0].to(torch.int32)
+    for c in gathered[1:]:
+        total = total + c.to(torch.int32)
+    scale_max = scale.clone()
+    dist.all_reduce(scale_max, op=dist.ReduceOp.MAX, group=group)
+    synced = true_div(total.float() * scale_max, float(n))
+    return synced.to(g.dtype), new_err
+
+
+def _local(t, axis: str):
+    """A leaf's local tensor and, for a DTensor, what rebuilds the DTensor
+    of its placements from a local result.  A DTensor leaf must be
+    replicated over ``axis``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        return t, lambda local: local
+    dim = t.device_mesh.mesh_dim_names.index(axis)
+    if not isinstance(t.placements[dim], Replicate):
+        raise ValueError(f"a DTensor leaf must be replicated over {axis!r}, "
+                         f"got {t.placements}")
+    return t.to_local(), lambda local: DTensor.from_local(
+        local, t.device_mesh, t.placements, run_check=False, shape=t.shape,
+        stride=t.stride())
+
+
+def _sync_group(grads: dict, error_state: dict, dmesh, axis: str):
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("compressed_grad_sync over a DeviceMesh needs an "
+                           "initialised process group")
+    if axis not in (dmesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {axis!r}: "
+                         f"{dmesh.mesh_dim_names}")
+    synced, new_err = {}, {}
+    for name, g in grads.items():
+        g_local, g_back = _local(g, axis)
+        e_local, e_back = _local(error_state[name], axis)
+        s, e = _sync_leaf_group(g_local, e_local, dmesh, axis)
+        synced[name], new_err[name] = g_back(s), e_back(e)
+    return synced, new_err
+
+
 def compressed_grad_sync(grads: dict, error_state: dict, *, mesh,
                          axis: str = "pod"):
     """Error-feedback int8 all-reduce of ``grads`` (name → tensor) over
-    ``axis`` of ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`).
+    ``axis`` of ``mesh``: a :class:`repro_torch.launch.mesh.Mesh` (every
+    position from this process) or a ``torch.distributed`` ``DeviceMesh``
+    (this rank's part, over an initialised process group; raises without
+    one).
 
     The grads are replicated across the axis (the usual post-step state);
     returns (synced grads, new error state), each leaf on its input's
-    device."""
+    device (a DTensor leaf at its placements)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        return _sync_group(grads, error_state, mesh, axis)
     devices = mesh.axis_devices(axis)
     synced, new_err = {}, {}
     for name, g in grads.items():
@@ -98,9 +171,10 @@ def compressed_grad_sync(grads: dict, error_state: dict, *, mesh,
 
 
 def wire_bytes(grads: dict, n_positions: int) -> dict:
-    """Bytes one sync sends to the first position: int8 codes from each of
-    the other positions, against an int32 ``psum``'s 4 bytes an element
-    (JAX's)."""
+    """Bytes one position receives in a sync: int8 codes from each of the
+    other positions (the first position, single controller; every rank of
+    the process group's all-gather), against the same exchange at an int32
+    ``psum``'s 4 bytes an element (JAX's)."""
     elems = sum(g.numel() for g in grads.values())
     return {"int8": (n_positions - 1) * elems,
             "int32_psum": 4 * (n_positions - 1) * elems}
