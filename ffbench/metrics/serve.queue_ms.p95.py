@@ -1,0 +1,11 @@
+"""The serve layer's queue wait (open loops), in ms: the 95th percentile of
+the server's own queue_wait samples (submit to the serving event that
+dispatched the request, on the wall clock) recorded inside the window."""
+from ffbench.stats import percentile
+
+
+def read(rec):
+    waits = [w for w in rec["queue_waits_s"] if w is not None]
+    if rec["loop"] != "open" or not waits:
+        return None
+    return percentile(waits, 95) * 1e3
