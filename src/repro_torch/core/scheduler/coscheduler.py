@@ -37,6 +37,7 @@ from repro_torch.core.scheduler.program import (E2EProgram, capture_pool,
                                                 host_operand)
 from repro_torch.core.scheduler.rectangular import StackedBatch, merge_operands
 from repro_torch.device import resolve_devices
+from repro_torch.obs.tracing import clock
 
 # Bounded history of per-launch merge/padding records.
 DISPATCH_LOG_MAX = 4096
@@ -189,8 +190,9 @@ class SliceCoScheduler:
         self.trace_counts: dict = {}
         self.dispatch_log: collections.deque = collections.deque(
             maxlen=DISPATCH_LOG_MAX)
-        # Observability hook (a tracer with next_id/begin/end/wall_now), set
-        # by a serving layer; launches then emit device-track spans.
+        # Observability hook (a repro_torch.obs.Tracer), set by a serving
+        # layer; launches then emit host spans of their steps and a
+        # device-track span from enqueue to the result on the host.
         self.tracer = None
 
     def reduction_for(self, workload: str) -> str:
@@ -332,6 +334,11 @@ class SliceCoScheduler:
     def _launch(self, group: _LaunchGroup):
         """Enqueue one launch group on its workload's device and start the
         copy of its result to the host, without waiting for either."""
+        tr = self.tracer
+        if tr is not None:
+            group.lid = tr.next_id()
+            tr.host_begin("sched.launch", group.lid)
+            tr.host_begin("sched.stage", group.lid)
         eng = self.engine_for(group.workload, group.d_bucket)
         members = [self._member_operand(b, eng)
                    for _, b, _, _ in group.members]
@@ -340,14 +347,20 @@ class SliceCoScheduler:
         host_in, view = host_operand(shape,
                                      self.device_for(group.workload))
         merge_operands(members, out=view)
+        if tr is not None:
+            tr.host_end("sched.stage", group.lid)
+            if shape not in self.jitted_for(group.workload, group.d_bucket):
+                tr.host_begin("sched.capture", group.lid)
+                self.program_for(group.workload, group.d_bucket, shape)
+                tr.host_end("sched.capture", group.lid)
+            tr.host_begin("sched.replay", group.lid)
         prog = self._run(group.workload, group.d_bucket, host_in)
         host_out, event = prog.copy_out()
-        tr = self.tracer
         if tr is not None:
-            group.lid = tr.next_id()
+            tr.host_end("sched.replay", group.lid)
             tr.begin("launch", group.lid,
-                     f"launch:{group.workload}/d{group.d_bucket}",
-                     tr.wall_now(), track="device",
+                     f"launch:{group.workload}/d{group.d_bucket}", clock(),
+                     track="device",
                      args={"live_rows": group.live_rows,
                            "launched_rows": shape[0],
                            "n_batches": len(group.members)})
@@ -357,19 +370,28 @@ class SliceCoScheduler:
             "launched_rows": shape[0],
             "donated": self.donate, "lid": group.lid,
             "devices": self.device_ids(group.workload)})
+        if tr is not None:
+            tr.host_end("sched.launch", group.lid)
         return group, eng, host_out, event
 
     def _materialise(self, group: _LaunchGroup, eng, host_out, event):
         """Wait for one group's result and split it back into one
         :class:`DispatchResult` per member batch (ladder-pad rows dropped)."""
-        if event is not None:
-            event.synchronize()
-        res = host_out.numpy().view(np.uint32).copy()
         tr = self.tracer
         if tr is not None:
+            tr.host_begin("sched.gather", group.lid)
+            tr.host_begin("sched.wait", group.lid)
+        if event is not None:
+            event.synchronize()
+        if tr is not None:
+            tr.host_end("sched.wait", group.lid)
+            tr.host_begin("sched.unpack", group.lid)
+        res = host_out.numpy().view(np.uint32).copy()
+        if tr is not None and group.lid:
+            # lid 0: launched before this tracer was attached
             tr.end("launch", group.lid,
-                   f"launch:{group.workload}/d{group.d_bucket}",
-                   tr.wall_now(), track="device")
+                   f"launch:{group.workload}/d{group.d_bucket}", clock(),
+                   track="device")
         stats = dict(getattr(eng, "last_stats", {}) or {})
         stats.update(eng.fold_profile)
         results = []
@@ -379,6 +401,9 @@ class SliceCoScheduler:
                        for i, r in enumerate(batch.requests)}
             results.append((idx, DispatchResult(
                 batch=batch, outputs=outputs, stats=dict(stats), rows=rows)))
+        if tr is not None:
+            tr.host_end("sched.unpack", group.lid)
+            tr.host_end("sched.gather", group.lid)
         return results
 
     # --- public dispatch surface ----------------------------------------------

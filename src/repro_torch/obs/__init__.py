@@ -10,7 +10,8 @@ Three pillars (the measurement substrate every perf PR is judged against):
 * :mod:`tracing`  — low-overhead request-lifecycle tracing: a bounded
   ring-buffer :class:`Tracer` collecting span/instant/counter events with
   causal request/batch/launch IDs, emitted by the server, batcher,
-  co-scheduler, and cluster layers (host-tagged in cluster mode);
+  co-scheduler, and cluster layers (host-tagged in cluster mode), and host
+  spans of each step between them on ``time.perf_counter``;
 * :mod:`export`   — Chrome ``trace_event`` / Perfetto rendering of a trace
   (open the JSON in https://ui.perfetto.dev), with per-host process tracks,
   per-class device tracks for launch groups, and counter tracks for queue
@@ -36,7 +37,7 @@ Three pillars (the measurement substrate every perf PR is judged against):
 from repro_torch.obs.alerts import (AlertEngine, BurnRateRule,
                                     ThresholdRule, default_cluster_rules,
                                     default_serve_rules, merge_alert_sections)
-from repro_torch.obs.export import (chrome_trace, read_text,
+from repro_torch.obs.export import (chrome_trace, host_spans, read_text,
                                     write_chrome_trace, write_text)
 from repro_torch.obs.ledger import (PenaltyLedger, launch_cycles,
                                     merge_penalty_sections)
@@ -51,5 +52,5 @@ __all__ = [
     "validate_openmetrics", "MetricsRegistry", "expose_registries",
     "serve_metrics_http", "AlertEngine", "BurnRateRule", "ThresholdRule",
     "default_serve_rules", "default_cluster_rules", "merge_alert_sections",
-    "read_text", "write_text",
+    "read_text", "write_text", "host_spans",
 ]

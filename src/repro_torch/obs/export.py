@@ -16,7 +16,14 @@ https://ui.perfetto.dev (or ``chrome://tracing``):
   overlapping spans (depth-k launch rings, concurrent requests) instead of
   corrupting a stack the way sync B/E would.
 
+* the host spans (the ``"host"`` track, sync ``B``/``E``) are stamped on
+  ``time.perf_counter``, not on the serving clock: on a wall-clock server
+  that is one timeline with the rest, under a virtual clock it is their own,
+  which the track's name says (``host (perf_counter)``).
+
 Export is pure: it never mutates the tracer, so it can run mid-flight.
+:func:`host_spans` reads the host spans back, each with its depth and self
+time.
 """
 from __future__ import annotations
 
@@ -25,9 +32,11 @@ import json
 
 # Stable thread ordering inside each host process: lifecycle first, then the
 # device/dispatch tracks, cluster control (drain barrier, failover spans),
-# counters and alerts last.  Unknown tracks sort after these.
+# counters and alerts, then the host spans.  Unknown tracks sort after these.
 _TRACK_ORDER = ("serve", "batcher", "holdback", "device", "cluster",
-                "failover", "counters", "alerts")
+                "failover", "counters", "alerts", "host")
+# Thread names that differ from the track's.
+_TRACK_NAMES = {"host": "host (perf_counter)"}
 
 
 def open_text(path: str, mode: str = "rt"):
@@ -82,7 +91,8 @@ def chrome_trace(events: list[dict], *,
         if (pid, tid) not in seen:
             seen.add((pid, tid))
             out.append({"ph": "M", "name": "thread_name", "pid": pid,
-                        "tid": tid, "args": {"name": track}})
+                        "tid": tid,
+                        "args": {"name": _TRACK_NAMES.get(track, track)}})
             out.append({"ph": "M", "name": "thread_sort_index", "pid": pid,
                         "tid": tid, "args": {"sort_index": tid}})
         row = {"ph": ev["ph"], "name": ev["name"], "pid": pid, "tid": tid,
@@ -106,3 +116,30 @@ def write_chrome_trace(path: str, events: list[dict], *,
     with open_text(path, "wt") as f:
         json.dump(trace, f)
     return trace
+
+
+def host_spans(events: list[dict]) -> list[tuple]:
+    """The closed host spans of ``events`` (``Tracer.event_dicts()``, one
+    host's or several), in the order they close: ``(name, id, start_s,
+    end_s, depth, self_s)``, where ``depth`` is 0 for a span no other host
+    span encloses and ``self_s`` is its length less its children's.  A span
+    left open at the end of the events, or closed with no begin (a tracer
+    attached or detached inside it), is left out."""
+    out = []
+    stacks: dict = {}      # host -> [[name, id, start, child seconds]]
+    for ev in events:
+        ph = ev["ph"]
+        if ev.get("track") != "host" or ph not in ("B", "E"):
+            continue
+        stack = stacks.setdefault(ev.get("host"), [])
+        if ph == "B":
+            stack.append([ev["name"], ev.get("id"), ev["ts"], 0.0])
+        elif stack and stack[-1][0] == ev["name"]:
+            name, id, start, child = stack.pop()
+            length = ev["ts"] - start
+            if stack:
+                stack[-1][3] += length
+            out.append((name, id, start, ev["ts"], len(stack),
+                        length - child))
+    return out
+

@@ -1,19 +1,31 @@
 """Request-lifecycle tracing: a bounded ring-buffer span/event sink.
 
 One :class:`Tracer` collects every observability event of one host's serving
-stack.  Events are plain dicts in a ``deque`` ring buffer (bounded memory; a
+stack.  Events are flat tuples in a ``deque`` ring buffer (bounded memory; a
 full buffer drops the *oldest* events and counts the drops), so the hot path
-pays one dict build + append per event and nothing else — no locks, no I/O,
+pays one tuple build + append per event and nothing else — no locks, no I/O,
 no formatting.  Rendering happens offline in :mod:`repro_torch.obs.export`.
 
-**Clock model.**  The serving stack runs on an explicit clock (virtual trace
-seconds in tests/benchmarks, ``time.monotonic`` live), while dispatch is
-measured with ``time.perf_counter``.  Every event timestamp lives on the
-*serving* clock: lifecycle events pass their ``now`` directly, and wall-clock
-emitters (the co-scheduler's launch/gather spans) call :meth:`wall_now`,
-which maps ``perf_counter`` through the offset set by :meth:`anchor` at the
-enclosing serving event.  Under a virtual clock this anchors real launch
-durations at virtual event times — one coherent timeline either way.
+**Two clocks.**  The serving stack runs on an explicit clock (virtual trace
+seconds in tests and replays, ``time.perf_counter`` or ``time.monotonic``
+live): the lifecycle events (request, batch and holdback spans, instants,
+counters) carry the ``now`` of the serving call that made them.  The host
+spans (:meth:`host_begin`/:meth:`host_end`, sync ``B``/``E`` on the
+``"host"`` track) and the co-scheduler's ``launch:`` spans are stamped with
+``time.perf_counter()`` when they happen, never re-based.  On a wall-clock
+server the two are one clock (``time.monotonic`` is the same
+``CLOCK_MONOTONIC`` as ``perf_counter`` on Linux), so host spans, launch
+spans and lifecycle events line up, and a profiler trace that maps
+``perf_counter`` onto its own clock can join them.  Under a virtual clock the
+host-clock events keep their own timeline, seconds of ``perf_counter`` far
+from the trace's; the exporter keeps them on their own tracks.
+
+**Host spans.**  Each server and co-scheduler step between the layers opens
+a host span (``serve.submit``, ``serve.admit``, ``sched.launch``,
+``sched.wait``, …) that closes before its caller's does, so they nest LIFO
+and a span's self time is its length less its children's.  A span puts the
+causal id of its request or launch in the ring's id slot and builds no args.
+With no tracer attached, each span site costs one ``is None`` test.
 
 **Causal IDs.**  ``next_id()`` hands out monotonically increasing integers
 shared by requests, batches, and launches (disjoint by construction), so a
@@ -42,6 +54,10 @@ CAT_REQUEST = "request"
 CAT_BATCH = "batch"
 CAT_LAUNCH = "launch"
 
+# The track of the host spans, and their clock (never re-based).
+HOST_TRACK = "host"
+clock = time.perf_counter
+
 
 class Tracer:
     """Bounded in-memory event sink for one host's serving stack."""
@@ -56,9 +72,8 @@ class Tracer:
         self.dropped = 0
         self._id_base = 0 if host is None else (host + 1) * ID_STRIDE
         self._seq = 0
-        self._offset = 0.0
 
-    # --- ids + clock ----------------------------------------------------------
+    # --- ids ------------------------------------------------------------------
 
     def next_id(self) -> int:
         """A fresh causal ID (requests, batches, and launches share one
@@ -67,16 +82,6 @@ class Tracer:
         fleet either)."""
         self._seq += 1
         return self._id_base + self._seq
-
-    def anchor(self, now: float):
-        """Pin the wall clock to the serving clock: subsequent
-        :meth:`wall_now` timestamps are ``perf_counter`` re-based so that the
-        instant of this call reads ``now``.  Called once per serving event."""
-        self._offset = now - time.perf_counter()
-
-    def wall_now(self) -> float:
-        """Current wall instant expressed on the serving clock (see anchor)."""
-        return time.perf_counter() + self._offset
 
     # --- event sinks ----------------------------------------------------------
 
@@ -111,6 +116,18 @@ class Tracer:
         if len(self.events) == self.capacity:
             self.dropped += 1
         self.events.append(("e", name, ts, track, cat, id, args))
+
+    def host_begin(self, name: str, id: int | None = None):
+        """Open a host span, stamped now on :data:`clock`.  Close it with
+        :meth:`host_end` before the span that encloses it closes."""
+        if len(self.events) == self.capacity:
+            self.dropped += 1
+        self.events.append(("B", name, clock(), HOST_TRACK, None, id, None))
+
+    def host_end(self, name: str, id: int | None = None):
+        if len(self.events) == self.capacity:
+            self.dropped += 1
+        self.events.append(("E", name, clock(), HOST_TRACK, None, id, None))
 
     def counter(self, name: str, ts: float, value: float, *,
                 track: str = "counters"):

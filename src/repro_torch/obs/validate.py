@@ -7,7 +7,8 @@ against the protocol the serving stack emits:
 * structural: every event row has ``ph``/``name``/``pid``/``tid``/``ts``
   with a known phase and non-negative timestamp;
 * balance: every async ``b`` (cat, id, pid) has a matching ``e`` later in
-  the stream; sync ``B``/``E`` pairs nest LIFO per (pid, tid);
+  the stream; sync ``B``/``E`` pairs nest LIFO per (pid, tid), each ``E``
+  naming the span it closes;
 * causality: every admitted request (a ``cat="request"`` span) is closed by
   a terminal ``e`` AND chains submit → batch → launch — its rid appears in
   the ``args.rids`` roster of a closed batch span, and that batch id
@@ -106,7 +107,10 @@ def validate_chrome_trace(trace) -> dict:
             if not stack:
                 raise ValueError(f"event {i}: 'E' on empty stack "
                                  f"(pid={ev['pid']}, tid={ev['tid']})")
-            stack.pop()
+            top = stack.pop()
+            if ev["name"] != top:
+                raise ValueError(f"event {i}: 'E' of {ev['name']!r} closes "
+                                 f"{top!r} (sync spans must nest LIFO)")
         elif ph == "i":
             args = ev.get("args", {})
             if ev["name"] == "launch_batches":

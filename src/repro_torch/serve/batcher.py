@@ -189,7 +189,8 @@ class ContinuousBatcher:
         self._depth -= len(ob.requests)
         if self.controller is not None:
             self.controller.observe_close(key, reason)
-        if self.tracer is not None:
+        if self.tracer is not None and ob.bid:
+            # (bid 0: the batch opened before this tracer was attached.)
             # The close event carries the request-id roster — one list per
             # batch instead of one enqueue instant per request, which is
             # what keeps tracing O(batches) on the per-request hot path.

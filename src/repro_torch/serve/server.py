@@ -293,15 +293,11 @@ class CryptoServer:
                 holdback_slo_fraction=cfg.holdback_slo_fraction,
                 slo_deadline_s=cfg.slo_deadline_s)
         # Observability: one host-tagged tracer shared by the server, the
-        # batcher, and the co-scheduler (so launch spans and lifecycle spans
-        # land on one timeline with one causal-ID sequence).
+        # batcher, the co-scheduler and the alert engine (so launch spans
+        # and lifecycle spans land with one causal-ID sequence), wired by
+        # attach_tracer below.
         self.tracer = None
-        if cfg.tracing:
-            self.tracer = Tracer(capacity=cfg.trace_capacity,
-                                 host=self.cos.host)
-        # Always (re)assign, so a shared co-scheduler handed from a traced
-        # run to an untraced one doesn't keep feeding the stale tracer.
-        self.cos.tracer = self.tracer
+        self.alerts = None
         # With a row ladder the batcher emits mergeable (live-row) operands
         # and the co-scheduler pads once, on the merged operand — padding to
         # N_c here as well would interleave dead rows into super-batches.
@@ -320,13 +316,16 @@ class CryptoServer:
         # arithmetic-stall / spatial-pad / host-gap bins.
         self.ledger = PenaltyLedger(m_tile=cfg.n_c_max)
         self.telemetry.attach_section("penalty", self.ledger.snapshot)
-        if self.tracer is not None:
-            self.telemetry.attach_section("trace", self.tracer.snapshot)
+        # Always attach (None too), so a shared co-scheduler handed from a
+        # traced run to an untraced one doesn't keep feeding the stale
+        # tracer.
+        self.attach_tracer(Tracer(capacity=cfg.trace_capacity,
+                                  host=self.cos.host)
+                           if cfg.tracing else None)
         # Continuous metrics + alerting: collector-driven scrape at the
         # serving-clock cadence; the alert engine evaluates right after
         # every scrape so alert timestamps are scrape timestamps.
         self.metrics = None
-        self.alerts = None
         if cfg.metrics:
             self.metrics = MetricsRegistry(period_s=cfg.metrics_period_s,
                                            capacity=cfg.metrics_capacity,
@@ -388,6 +387,28 @@ class CryptoServer:
                     "be reused")
             self.warm_traces = self.cos.precompile(cfg.warm_start, cfg.n_c)
 
+    def attach_tracer(self, tracer: Tracer | None):
+        """Wire ``tracer`` into the server, its batcher, its co-scheduler
+        and its alert engine, or take tracing off with None.  Call it
+        between serving events, never inside one.
+
+        A tracer attached to a server that is already serving records a
+        window: request, batch and launch spans open at either edge are cut
+        (an end without its begin, or a begin without its end), so
+        :func:`repro_torch.obs.validate_chrome_trace`, which wants whole
+        lifecycles, holds for a tracer attached before the first request.
+        The host spans close inside the serving event that opened them, so
+        they are whole in any window."""
+        self.tracer = tracer
+        self.batcher.tracer = tracer
+        self.cos.tracer = tracer
+        if self.alerts is not None:
+            self.alerts.tracer = tracer
+        if tracer is None:
+            self.telemetry.detach_section("trace")
+        else:
+            self.telemetry.attach_section("trace", tracer.snapshot)
+
     def _make_batcher(self) -> ContinuousBatcher:
         """Construct the continuous batcher from the config — used at boot
         and by ``reset_after_failure`` (a rebooted host gets a fresh one)."""
@@ -408,6 +429,12 @@ class CryptoServer:
         # resolves/rejects that handle instead of allocating a second one.
         if handle is None:
             handle = ResponseHandle(req, submitted_at=now)
+        tr = self.tracer
+        tid = 0
+        if tr is not None:
+            tid = tr.next_id()
+            tr.host_begin("serve.submit", tid)
+            tr.host_begin("serve.admit", tid)
         rid = getattr(req, "request_id", None)
         if self._draining:
             decision = AdmissionDecision(False, "draining")
@@ -426,19 +453,20 @@ class CryptoServer:
                                             pending=self.pending_load,
                                             cluster_pending=cluster_pending)
         self.telemetry.record_admission(decision.reason)
-        tr = self.tracer
+        if tr is not None:
+            tr.host_end("serve.admit", tid)
         if not decision.admitted:
+            handle._reject(decision, at=now)
             if tr is not None:
                 tr.instant("reject", now,
                            args={"workload": req.workload,
                                  "reason": decision.reason})
-            handle._reject(decision, at=now)
+                tr.host_end("serve.submit", tid)
             return handle
         if tr is not None:
             # The request span opens at submit and closes at completion; the
             # causal ID rides on the request object so the batcher can link
             # it to the batch it lands in.
-            tid = tr.next_id()
             req.trace_id = tid
             # Name carries the workload, the batch span carries the d
             # bucket, the span length is the latency — no per-request args
@@ -451,7 +479,14 @@ class CryptoServer:
         if rid is not None:
             self._seen_rids.add(rid)
         self._handles[id(req)] = handle
-        self._dispatch(self.batcher.add(req, now), now)
+        if tr is None:
+            self._dispatch(self.batcher.add(req, now), now)
+            return handle
+        tr.host_begin("serve.batch", tid)
+        closed = self.batcher.add(req, now)
+        tr.host_end("serve.batch", tid)
+        self._dispatch(closed, now)
+        tr.host_end("serve.submit", tid)
         return handle
 
     def submit_many(self, reqs, now: float | None = None,
@@ -485,6 +520,15 @@ class CryptoServer:
         if not handles:
             return handles
         tr = self.tracer
+        if tr is not None:
+            tr.host_begin("serve.submit_many")
+        handles = self._submit_many(reqs, handles, nows_arr)
+        if tr is not None:
+            tr.host_end("serve.submit_many")
+        return handles
+
+    def _submit_many(self, reqs, handles, nows_arr):
+        tr = self.tracer
         if self._draining:
             d = AdmissionDecision(False, "draining")
             for h, t in zip(handles, nows_arr):
@@ -515,6 +559,8 @@ class CryptoServer:
         if not live_pos:
             self.telemetry.record_admissions({"duplicate": len(dup_pos)})
             return handles
+        if tr is not None:
+            tr.host_begin("serve.admit")
         cluster_pending = (
             self.cluster_depth_fn(float(nows_arr[live_pos[0]]))
             if (self.cluster_depth_fn is not None
@@ -527,6 +573,8 @@ class CryptoServer:
         if dup_pos:
             counts["duplicate"] = len(dup_pos)
         self.telemetry.record_admissions(counts)
+        if tr is not None:
+            tr.host_end("serve.admit")
         closed: list[ClosedBatch] = []
         admitted = dec.admitted
         for j, p in enumerate(live_pos):
@@ -582,8 +630,17 @@ class CryptoServer:
         Under the async pipeline this is also the gathering edge: any launch
         left in flight by a previous event is materialised here."""
         now = time.monotonic() if now is None else now
+        tr = self.tracer
+        if tr is None:
+            closed = self.batcher.poll(now)
+            self._dispatch(closed, now)
+            return len(closed)
+        tr.host_begin("serve.pump")
+        tr.host_begin("serve.poll")
         closed = self.batcher.poll(now)
+        tr.host_end("serve.poll")
         self._dispatch(closed, now)
+        tr.host_end("serve.pump")
         return len(closed)
 
     def next_deadline(self) -> float | None:
@@ -618,9 +675,14 @@ class CryptoServer:
         Single-host callers use this directly (quiesce + flush in one step);
         the cluster barrier calls ``quiesce`` on all hosts first, then this."""
         now = time.monotonic() if now is None else now
+        tr = self.tracer
+        if tr is not None:
+            tr.host_begin("serve.drain")
         self.quiesce(now)
         closed = self.batcher.flush(now)
         self._dispatch(closed, now, final=True)
+        if tr is not None:
+            tr.host_end("serve.drain")
         return len(closed)
 
     # --- failover (repro_torch.cluster.failover drives these) -----------------
@@ -725,6 +787,9 @@ class CryptoServer:
         key = (batch.workload, batch.d_bucket)
         if key in self._validated:
             return
+        tr = self.tracer
+        if tr is not None:
+            tr.host_begin("serve.validate")
         eng = self.cos.engine_for(*key)
         rows = (batch.operand.shape[0] if batch.operand is not None
                 else batch.n_c)
@@ -750,6 +815,8 @@ class CryptoServer:
                             f"{batch.workload}/d{batch.d_bucket}")
         rep.raise_if_failed()
         self._validated.add(key)
+        if tr is not None:
+            tr.host_end("serve.validate")
 
     def _class_key(self, cb: ClosedBatch) -> tuple:
         return (cb.batch.workload, cb.batch.d_bucket)
@@ -876,10 +943,15 @@ class CryptoServer:
         in the registry makes a same-instant force a no-op)."""
         if self.metrics is None:
             return
+        tr = self.tracer
+        if tr is not None:
+            tr.host_begin("serve.scrape")
         scraped = (self.metrics.scrape(now) if final
                    else self.metrics.maybe_scrape(now))
         if scraped and self.alerts is not None:
             self.alerts.evaluate(now)
+        if tr is not None:
+            tr.host_end("serve.scrape")
 
     # --- observability export -------------------------------------------------
 
@@ -1027,10 +1099,12 @@ class CryptoServer:
         pen emptied, every ring retired in launch order, zero groups left
         in flight."""
         tr = self.tracer
-        if tr is not None:
-            # Pin wall-clock emitters (launch spans) to this serving event's
-            # clock so the whole trace shares one timeline.
-            tr.anchor(now)
+        # a host span only when there is something to launch or gather
+        spanned = tr is not None and bool(
+            closed or final or self._staged or self._held
+            or self.inflight_groups)
+        if spanned:
+            tr.host_begin("serve.dispatch")
         if self.config.validate:
             for cb in closed:
                 self._validate_once(cb.batch)
@@ -1072,6 +1146,8 @@ class CryptoServer:
         # through here, so a cadence check per event is the whole hot-path
         # cost (the ≤5% rows/s gate in bench_dispatch counts on this).
         self._scrape_metrics(now, final=final)
+        if spanned:
+            tr.host_end("serve.dispatch")
 
     def _launch(self, staged: list[ClosedBatch]):
         t0 = time.perf_counter()
@@ -1094,6 +1170,9 @@ class CryptoServer:
         t1 = time.perf_counter()
         results = self.cos.gather(flight)
         service_s = launch_s + time.perf_counter() - t1
+        tr = self.tracer
+        if tr is not None:
+            tr.host_begin("serve.finish")
         if self.dispatch_auditor is not None:
             self.dispatch_auditor.on_gather(flight)
         if self.config.deterministic_timing:
@@ -1113,7 +1192,6 @@ class CryptoServer:
         # launch group; per-batch device timing is not observable from here).
         total_rows = sum(cb.batch.n_c for cb in closed) or 1
         self.admission.observe_service(total_rows, service_s)
-        tr = self.tracer
         if tr is not None:
             # Causal middle link: which closed batches rode which launch.
             for group, *_ in flight.groups:
@@ -1181,6 +1259,8 @@ class CryptoServer:
                 donated=entry["donated"],
                 devices=tuple(entry.get("devices", ()))))
             acc = class_k.get(key)
+            if tr is not None:
+                tr.host_begin("obs.ledger", entry.get("lid") or None)
             self.ledger.observe_launch(
                 workload=entry["workload"], d=entry["d_bucket"],
                 live_rows=live, launched_rows=launched,
@@ -1188,6 +1268,8 @@ class CryptoServer:
                 service_s=service_s * live / total_live,
                 profile=self._ledger_profile(*key),
                 k_occupancy=(acc[0] / acc[1]) if acc and acc[1] else 1.0)
+            if tr is not None:
+                tr.host_end("obs.ledger", entry.get("lid") or None)
         for (cb, eng, m), res in zip(batch_metrics, results):
             batch = cb.batch
             share = service_s * batch.n_c / total_rows
@@ -1211,3 +1293,5 @@ class CryptoServer:
                 rid = getattr(r, "trace_id", None)
                 if tr is not None and rid is not None:
                     tr.end("request", rid, "complete", completed)
+        if tr is not None:
+            tr.host_end("serve.finish")

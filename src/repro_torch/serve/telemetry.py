@@ -229,6 +229,10 @@ class Telemetry:
         without telemetry knowing its shape)."""
         self._sections[name] = provider
 
+    def detach_section(self, name: str):
+        """Stop exporting ``name`` (no error if it was never attached)."""
+        self._sections.pop(name, None)
+
     # --- event sinks ----------------------------------------------------------
 
     def record_batch(self, rec: BatchRecord):

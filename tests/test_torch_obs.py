@@ -9,6 +9,7 @@ the CPU; the traced serving runs use the port's server with the plain
 PyTorch versions of the kernels.
 """
 import json
+import time
 
 import numpy as np
 import pytest
@@ -20,8 +21,8 @@ from repro_torch.core import field as F
 from repro_torch.core.scheduler import TenantRequest
 from repro_torch.core.scheduler.coscheduler import SliceCoScheduler
 from repro_torch.obs import (PenaltyLedger, Tracer, chrome_trace,
-                             launch_cycles, merge_penalty_sections,
-                             validate_chrome_trace)
+                             host_spans, launch_cycles,
+                             merge_penalty_sections, validate_chrome_trace)
 from repro_torch.obs.ledger import SHARE_KEYS
 from repro_torch.obs.tracing import ID_STRIDE
 from repro_torch.serve import CryptoServer, ServeConfig
@@ -82,11 +83,22 @@ def test_tracer_ids_unique_across_hosts():
                    j0.next_id(), j0.next_id(), j1.next_id()]
 
 
-def test_tracer_anchor_maps_wall_onto_serving_clock():
+def test_tracer_host_spans_stamped_on_perf_counter():
+    """Host spans are sync B/E pairs on the "host" track, stamped with
+    ``time.perf_counter()`` as they happen (nothing re-bases them), with
+    the causal id in the id slot and no args."""
     tr = Tracer()
-    tr.anchor(100.0)
-    w = tr.wall_now()
-    assert 100.0 <= w < 100.5       # perf_counter delta since anchor is tiny
+    t0 = time.perf_counter()
+    tr.host_begin("sched.launch", 7)
+    tr.host_end("sched.launch", 7)
+    t1 = time.perf_counter()
+    b, e = tr.event_dicts()
+    assert (b["ph"], e["ph"]) == ("B", "E")
+    assert b["track"] == e["track"] == "host"
+    assert b["id"] == e["id"] == 7
+    assert "args" not in b and "args" not in e
+    assert t0 <= b["ts"] <= e["ts"] <= t1
+    assert not hasattr(tr, "anchor") and not hasattr(tr, "wall_now")
 
 
 # --- Perfetto export -----------------------------------------------------------
@@ -188,6 +200,8 @@ def test_validator_rejects_broken_chains(broken, match):
     ({"traceEvents": [_ev("e", "x", cat="launch", id=9)]}, "without open 'b'"),
     ({"traceEvents": [_ev("E", "x")]}, "empty stack"),
     ({"traceEvents": [_ev("B", "x")]}, "unclosed sync"),
+    ({"traceEvents": [_ev("B", "x"), _ev("B", "y"), _ev("E", "x"),
+                      _ev("E", "y")]}, "must nest LIFO"),
     ({"traceEvents": [_ev("C", "x", args={})]}, "missing args.value"),
     ([], "traceEvents"),
 ])
@@ -463,3 +477,127 @@ def test_penalty_ledger_e2e_conserves_including_lazy():
     assert w["live_rows"] == 8
     assert abs(sum(w["shares"].values()) - 1.0) <= 1e-9
     assert w["cycles"]["total"] > 0.0
+
+
+# --- host spans on the wall clock ----------------------------------------------
+
+def _run_wall(server, n_requests=20):
+    """Requests submitted on the wall clock (``now`` is perf_counter, as a
+    live caller's), each followed by a pump, then a drain."""
+    handles = []
+    for i in range(n_requests):
+        handles.append(server.submit(
+            _dil_request(i, 64 if i % 3 else 100), now=time.perf_counter()))
+        server.pump(time.perf_counter())
+    server.drain(time.perf_counter())
+    return handles
+
+
+def _spans_by(spans, name):
+    return [s for s in spans if s[0] == name]
+
+
+@pytest.mark.parametrize("kw", [{}, {"async_pipeline": True,
+                                     "inflight_depth": 2}],
+                         ids=["sync", "async_depth2"])
+def test_wall_clock_host_spans_nest_and_cover_every_launch(kw):
+    """A traced wall-clock run exports a valid trace whose host spans nest
+    LIFO; every launch has exactly one sched.launch, sched.stage,
+    sched.replay, sched.gather, sched.wait and sched.unpack carrying its
+    id; each launch span starts inside its sched.launch and ends inside
+    its sched.gather, all on one clock."""
+    server = CryptoServer(_cfg(**kw), coscheduler=COS)
+    handles = _run_wall(server)
+    assert all(h.done() and not h.rejected for h in handles)
+    events = server.trace_events()
+    doc = chrome_trace(events)
+    stats = validate_chrome_trace(doc)      # B/E nest LIFO, names matched
+    assert stats["requests"] == len(handles)
+    host = [e for e in events if e["track"] == "host"]
+    assert {e["ph"] for e in host} == {"B", "E"}
+    spans = host_spans(events)
+    assert len(spans) * 2 == len(host)      # every span closed
+    lids = [e["id"] for e in events if e["ph"] == "b" and e["cat"] == "launch"]
+    assert lids and len(set(lids)) == len(lids)
+    for name in ("sched.launch", "sched.stage", "sched.replay",
+                 "sched.gather", "sched.wait", "sched.unpack"):
+        assert sorted(s[1] for s in _spans_by(spans, name)) == sorted(lids)
+    assert not _spans_by(spans, "sched.capture")    # every program cached
+    launch = {s[1]: s for s in _spans_by(spans, "sched.launch")}
+    gather = {s[1]: s for s in _spans_by(spans, "sched.gather")}
+    for e in events:
+        if e.get("cat") != "launch":
+            continue
+        outer = launch[e["id"]] if e["ph"] == "b" else gather[e["id"]]
+        assert outer[2] <= e["ts"] <= outer[3]
+    submits = _spans_by(spans, "serve.submit")
+    assert len(submits) == len(handles)
+    assert all(s[4] == 0 for s in submits)          # top level
+    names = {s[0] for s in spans}
+    assert {"serve.admit", "serve.batch", "serve.dispatch", "serve.pump",
+            "serve.poll", "serve.drain", "serve.finish",
+            "obs.ledger"} <= names
+    # one sched.launch per DispatchRecord, each under a serve.dispatch
+    assert len(launch) == len(server.telemetry.dispatches)
+    assert all(s[4] >= 1 for s in launch.values())
+    # the request ids in serve.submit's slot are the request spans' ids
+    reqs = {e["id"] for e in events if e["ph"] == "b" and e["cat"] == "request"}
+    assert {s[1] for s in submits} == reqs
+
+
+def test_host_spans_self_time():
+    """Self time is a span less its children; a span cut by attach or
+    detach (an E with no B, a B with no E) is left out."""
+    ev = [("E", "cut", 0.5), ("B", "a", 1.0), ("B", "b", 1.5),
+          ("E", "b", 2.0), ("B", "c", 2.0), ("E", "c", 2.25),
+          ("E", "a", 3.0), ("B", "open", 4.0)]
+    events = [{"ph": ph, "name": n, "ts": ts, "track": "host", "host": None}
+              for ph, n, ts in ev]
+    events.append({"ph": "i", "name": "x", "ts": 1.2, "track": "serve",
+                   "host": None})
+    spans = host_spans(events)
+    assert [(s[0], s[2], s[3], s[4], s[5]) for s in spans] == [
+        ("b", 1.5, 2.0, 1, 0.5), ("c", 2.0, 2.25, 1, 0.25),
+        ("a", 1.0, 3.0, 0, 1.25)]
+
+
+def test_attach_tracer_at_runtime_and_detach():
+    """A tracer attached between events records a window whose host spans
+    are whole; ``attach_tracer(None)`` between events records nothing
+    more, in the server, the batcher or the co-scheduler."""
+    server = CryptoServer(_cfg(tracing=False), coscheduler=COS)
+    _run_wall(server, n_requests=5)
+    server.submit(_dil_request(99, 64), now=time.perf_counter())  # open batch
+    tr = Tracer()
+    server.attach_tracer(tr)
+    assert server.batcher.tracer is tr and COS.tracer is tr
+    assert server.telemetry.snapshot()["trace"]["capacity"] == tr.capacity
+    _run_wall(server, n_requests=9)
+    spans = host_spans(tr.event_dicts())
+    assert 2 * len(spans) == sum(1 for e in tr.events if e[3] == "host")
+    assert len(_spans_by(spans, "serve.submit")) == 9
+    # the batch that opened before the attach closes without a dangling end
+    assert all(e[5] for e in tr.events if e[0] == "e" and e[4] == "batch")
+    server.attach_tracer(None)
+    n = len(tr.events)
+    _run_wall(server, n_requests=6)
+    assert len(tr.events) == n
+    assert server.tracer is None and server.batcher.tracer is None
+    assert COS.tracer is None
+    assert "trace" not in server.telemetry.snapshot()
+
+
+def test_server_without_tracer_emits_no_span():
+    """A server built untraced on a co-scheduler a traced server used takes
+    the stale tracer off it: nothing more reaches the first tracer."""
+    traced = CryptoServer(_cfg(), coscheduler=COS)
+    _run_wall(traced, n_requests=4)
+    n = len(traced.tracer.events)
+    assert n > 0
+    off = CryptoServer(_cfg(tracing=False), coscheduler=COS)
+    handles = _run_wall(off, n_requests=12)
+    assert all(h.done() for h in handles)
+    assert len(traced.tracer.events) == n
+    assert off.trace_events() == []
+    assert COS.tracer is None and off.batcher.tracer is None
+    assert all(getattr(h.request, "trace_id", None) is None for h in handles)
