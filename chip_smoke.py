@@ -84,7 +84,8 @@ Phases, each printing one JSON line:
    fresh co-scheduler), the warm run's under ``warm``, captures, their host
    seconds and the graph pool's bytes; then two more warm runs of the paper
    trace split its wall time (``profile``: host timers around the programs'
-   H2D copies, replays, D2H copies and the waits on their events;
+   slot launches, one graph replay each with the H2D and D2H copies inside,
+   and the waits on their events;
    torch.profiler for device time, whose K1/K2 kernel events must equal the
    counted launches, and are the kernel table's K1/K2 ``launches``), and
    one BN254 and one Dilithium dispatch time their program against the
@@ -1629,14 +1630,14 @@ def _kernel_events(prof):
 
 @contextlib.contextmanager
 def _host_timers(spent: dict):
-    """Add the host seconds spent in each program's H2D copy
-    (``E2EProgram.load``), graph replay (``replay``) and D2H copy
-    (``copy_out``) to ``spent``, and count the calls, by wrapping the
-    methods; restored on exit.  All three are asynchronous, so this is the
-    time to enqueue them (and to wait when the queue is full).  ``wait`` is
-    the time ``gather`` spends in the CUDA events that mark results on the
-    host, waiting for the device."""
-    names = {"load": "h2d", "replay": "replay", "copy_out": "d2h"}
+    """Add the host seconds spent in each program's slot launch
+    (``E2EProgram.launch``: one graph replay that holds the H2D copy, the
+    e2e and the D2H copy, and the record of the slot's event) to ``spent``,
+    and count the calls, by wrapping the method; restored on exit.  The
+    launch is asynchronous, so this is the time to enqueue it (and to wait
+    when the queue is full).  ``wait`` is the time ``gather`` spends in the
+    CUDA events that mark results on the host, waiting for the device."""
+    names = {"launch": "launch"}
     originals = {name: getattr(E2EProgram, name) for name in names}
     event_sync = torch.cuda.Event.synchronize
 
@@ -1690,8 +1691,9 @@ def _profiled_replay(cos, dev, tries=3) -> tuple:
 def phase_profile(dev):
     """Where the paper trace's wall time goes once every program is
     captured.  After a warm-up replay (which captures them), one replay
-    with host timers around the programs' H2D copies, replays and D2H
-    copies and the waits on their events splits the wall time on the host; one more under torch.profiler
+    with host timers around the programs' slot launches (one graph replay
+    each, the copies inside it) and the waits on their events splits the
+    wall time on the host; one more under torch.profiler
     gives the device time of every kernel and checks the launch census a
     second way, by the K1/K2 kernel events.  The device idle share sets the
     profiled busy time against the unprofiled wall time (the profiler slows
@@ -1700,8 +1702,8 @@ def phase_profile(dev):
     _replay(cos)
     torch.cuda.synchronize(dev)
     captures = dict(cos.trace_counts)
-    spent = {"h2d": 0.0, "replay": 0.0, "d2h": 0.0, "wait": 0.0,
-             "calls": {"h2d": 0, "replay": 0, "d2h": 0, "wait": 0}}
+    spent = {"launch": 0.0, "wait": 0.0,
+             "calls": {"launch": 0, "wait": 0}}
     with _host_timers(spent):
         results, _, wall = _replay(cos)
         torch.cuda.synchronize(dev)
@@ -1808,13 +1810,14 @@ def _online_run(dev, cos, label: str, kw: dict, d_uniform,
     at 0 and peak memory reset just before it.  Returns the run, its
     counts and the census it was held to."""
     runs = {}
-    run = cos._run
+    launch = cos._launch
 
-    def counted(workload, d, operand):
-        runs[(workload, d)] = runs.get((workload, d), 0) + 1
-        return run(workload, d, operand)
+    def counted(group):
+        key = (group.workload, group.d_bucket)
+        runs[key] = runs.get(key, 0) + 1
+        return launch(group)
 
-    cos._run = counted
+    cos._launch = counted
     captures = dict(cos.trace_counts)
     torch.cuda.synchronize(dev)
     # hand back what earlier phases left cached, so that the reserved peak
@@ -1832,7 +1835,7 @@ def _online_run(dev, cos, label: str, kw: dict, d_uniform,
             metrics_out=paths and str(paths["metrics"]), **kw)
         torch.cuda.synchronize(dev)
     finally:
-        del cos._run
+        del cos._launch
     memory = {"resident_before_bytes": resident,
               "reserved_before_bytes": reserved,
               "max_allocated_bytes": torch.cuda.max_memory_allocated(dev),
@@ -2029,11 +2032,12 @@ def _cluster_run(dev, coses: list, label: str, kw: dict,
     runs = [{} for _ in coses]
 
     def counting(cos, counts):
-        run = cos._run
+        launch = cos._launch
 
-        def counted(workload, d, operand):
-            counts[(workload, d)] = counts.get((workload, d), 0) + 1
-            return run(workload, d, operand)
+        def counted(group):
+            key = (group.workload, group.d_bucket)
+            counts[key] = counts.get(key, 0) + 1
+            return launch(group)
         return counted
 
     # each host's validation probes: the host seconds of every first
@@ -2054,7 +2058,7 @@ def _cluster_run(dev, coses: list, label: str, kw: dict,
                     time.perf_counter() - t0)
 
     for cos, counts in zip(coses, runs):
-        cos._run = counting(cos, counts)
+        cos._launch = counting(cos, counts)
     CryptoServer._validate_once = timed_validation
     captures = [dict(cos.trace_counts) for cos in coses]
     capture_s = [_capture_s(cos) for cos in coses]
@@ -2073,7 +2077,7 @@ def _cluster_run(dev, coses: list, label: str, kw: dict,
     finally:
         CryptoServer._validate_once = validate_once
         for cos in coses:
-            del cos._run
+            del cos._launch
     launches = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
                 "fused_ntt_tile": K3.launches}
     # every class a host dispatched ran one validation probe on that host

@@ -13,9 +13,13 @@ when there are several.  How the JAX package's mechanisms map here:
   every dispatch replays one program per launch group.
   ``trace_counts[(w, d)]`` counts the captures, as the JAX count counts the
   retraces, so the ladder bounds it the same way;
-* ``copy_to_host_async`` becomes the program's copy of its static output
-  into a fresh pinned host buffer, enqueued on the replay's stream before
-  any later replay, plus a CUDA event that ``gather`` waits on;
+* ``copy_to_host_async`` becomes a launch slot of the program
+  (:class:`~repro_torch.core.scheduler.program.LaunchSlot`): the operand is
+  merged into the slot's pinned input, one graph replay copies it in, runs
+  the e2e and copies the result into the slot's pinned output, and the
+  slot's CUDA event, which ``gather`` waits on, is recorded behind it.  The
+  slot is held until the gather has copied the rows out, so no later
+  launch writes a slot that a flight can still gather;
 * ``donate`` is recorded only: the program's static input is the donated
   buffer, written by every launch and owned by the program.
 
@@ -33,8 +37,7 @@ import torch
 
 from repro_torch.core import limb_gemm as G
 from repro_torch.core import workloads as WK
-from repro_torch.core.scheduler.program import (E2EProgram, capture_pool,
-                                                host_operand)
+from repro_torch.core.scheduler.program import E2EProgram, capture_pool
 from repro_torch.core.scheduler.rectangular import StackedBatch, merge_operands
 from repro_torch.device import resolve_devices
 from repro_torch.obs.tracing import clock
@@ -130,9 +133,9 @@ class _LaunchGroup:
 
 @dataclasses.dataclass
 class InflightDispatch:
-    """launch_mixed → gather handle: per group, the host buffer its result
-    is being copied into and the event that marks the copy done."""
-    groups: list           # (_LaunchGroup, engine, host tensor, event | None)
+    """launch_mixed → gather handle: per group, its program and the launch
+    slot that the group holds until its gather."""
+    groups: list           # (_LaunchGroup, E2EProgram, LaunchSlot)
     n_batches: int
 
 
@@ -263,15 +266,6 @@ class SliceCoScheduler:
             self.trace_counts[(workload, d)] = len(programs)
         return prog
 
-    def _run(self, workload: str, d: int,
-             operand: torch.Tensor) -> E2EProgram:
-        """Run the program of ``operand``'s shape on it (a host int32
-        tensor, pinned on CUDA) and return the program, whose static
-        output holds the result until its next run."""
-        prog = self.program_for(workload, d, tuple(operand.shape))
-        prog.run(operand)
-        return prog
-
     def precompile(self, programs, n_c: int) -> int:
         """Capture every ``(workload, d_bucket)``'s program at every rung
         (or at ``n_c`` without a ladder): builds engines, uploads planes and
@@ -288,13 +282,17 @@ class SliceCoScheduler:
         return n_new
 
     def program_stats(self) -> dict:
-        """Captures, their host seconds, and the memory of each CUDA
-        device's graph pool (:meth:`CapturePool.bytes`; the pool is the
-        process's, shared with other co-schedulers on the device)."""
+        """Captures, their host seconds, the launch slots the programs hold
+        (``slots``) and those added after each program's first
+        (``slot_grows``), and the memory of each CUDA device's graph pool
+        (:meth:`CapturePool.bytes`; the pool is the process's, shared with
+        other co-schedulers on the device)."""
         progs = [p for cache in self._programs.values()
                  for p in cache.values()]
         return {"captures": len(progs),
                 "capture_s": sum(p.capture_s for p in progs),
+                "slots": sum(len(p.slots) for p in progs),
+                "slot_grows": sum(p.slot_grows for p in progs),
                 "pool_bytes": {str(dev): capture_pool(dev).bytes()
                                for dev in self.devices
                                if dev.type == "cuda"}}
@@ -332,30 +330,30 @@ class SliceCoScheduler:
         return np.asarray(batch.operand, np.uint32)        # (N, d, C)
 
     def _launch(self, group: _LaunchGroup):
-        """Enqueue one launch group on its workload's device and start the
-        copy of its result to the host, without waiting for either."""
+        """Enqueue one launch group on its workload's device through a
+        launch slot of its program, without waiting for it."""
         tr = self.tracer
         if tr is not None:
             group.lid = tr.next_id()
             tr.host_begin("sched.launch", group.lid)
-            tr.host_begin("sched.stage", group.lid)
-        eng = self.engine_for(group.workload, group.d_bucket)
-        members = [self._member_operand(b, eng)
-                   for _, b, _, _ in group.members]
         shape = self.operand_shape(group.workload, group.d_bucket,
                                    group.operand_rows)
-        host_in, view = host_operand(shape,
-                                     self.device_for(group.workload))
-        merge_operands(members, out=view)
+        prog = self.jitted_for(group.workload, group.d_bucket).get(shape)
+        if prog is None:
+            if tr is not None:
+                tr.host_begin("sched.capture", group.lid)
+            prog = self.program_for(group.workload, group.d_bucket, shape)
+            if tr is not None:
+                tr.host_end("sched.capture", group.lid)
+        if tr is not None:
+            tr.host_begin("sched.stage", group.lid)
+        slot = prog.acquire(group)
+        merge_operands([self._member_operand(b, prog.eng)
+                        for _, b, _, _ in group.members], out=slot.in_view)
         if tr is not None:
             tr.host_end("sched.stage", group.lid)
-            if shape not in self.jitted_for(group.workload, group.d_bucket):
-                tr.host_begin("sched.capture", group.lid)
-                self.program_for(group.workload, group.d_bucket, shape)
-                tr.host_end("sched.capture", group.lid)
             tr.host_begin("sched.replay", group.lid)
-        prog = self._run(group.workload, group.d_bucket, host_in)
-        host_out, event = prog.copy_out()
+        prog.launch(slot)
         if tr is not None:
             tr.host_end("sched.replay", group.lid)
             tr.begin("launch", group.lid,
@@ -372,26 +370,33 @@ class SliceCoScheduler:
             "devices": self.device_ids(group.workload)})
         if tr is not None:
             tr.host_end("sched.launch", group.lid)
-        return group, eng, host_out, event
+        return group, prog, slot
 
-    def _materialise(self, group: _LaunchGroup, eng, host_out, event):
-        """Wait for one group's result and split it back into one
-        :class:`DispatchResult` per member batch (ladder-pad rows dropped)."""
+    def _materialise(self, group: _LaunchGroup, prog: E2EProgram, slot):
+        """Wait for one group's result, copy it out of the group's launch
+        slot and free the slot, then split the rows into one
+        :class:`DispatchResult` per member batch (ladder-pad rows
+        dropped)."""
+        if not slot.held_by(group):
+            raise RuntimeError(
+                f"launch of {group.workload}/d{group.d_bucket} was gathered "
+                f"already: its slot may hold another launch's rows")
         tr = self.tracer
         if tr is not None:
             tr.host_begin("sched.gather", group.lid)
             tr.host_begin("sched.wait", group.lid)
-        if event is not None:
-            event.synchronize()
+        slot.wait()
         if tr is not None:
             tr.host_end("sched.wait", group.lid)
             tr.host_begin("sched.unpack", group.lid)
-        res = host_out.numpy().view(np.uint32).copy()
+        res = slot.out_view.copy()
+        slot.holder = None
         if tr is not None and group.lid:
             # lid 0: launched before this tracer was attached
             tr.end("launch", group.lid,
                    f"launch:{group.workload}/d{group.d_bucket}", clock(),
                    track="device")
+        eng = prog.eng
         stats = dict(getattr(eng, "last_stats", {}) or {})
         stats.update(eng.fold_profile)
         results = []
@@ -409,8 +414,9 @@ class SliceCoScheduler:
     # --- public dispatch surface ----------------------------------------------
 
     def launch_mixed(self, batches: list[StackedBatch]) -> InflightDispatch:
-        """Phase 1+2: enqueue every launch group, each followed by the
-        asynchronous copy of its result to pinned host memory."""
+        """Phase 1+2: enqueue every launch group, each with the
+        asynchronous copy of its result into its launch slot's pinned
+        output."""
         inflight = [self._launch(g) for g in self._plan_groups(batches)]
         return InflightDispatch(groups=inflight, n_batches=len(batches))
 

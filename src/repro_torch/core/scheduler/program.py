@@ -8,16 +8,26 @@ engine's device, the engine's twiddle planes (uploaded once, by the engine)
 and a static int32 output.
 
 * On CUDA the e2e runs once on the pool's side stream (the warm-up, which
-  also yields the output's shape) and is then captured once as a CUDA graph
-  into the pool's memory.  :meth:`E2EProgram.run` copies the operand into
-  the static input on the current stream and replays the graph there: one
-  graph launch in place of the thousands of launches the e2e makes op by
-  op.  A failed capture, or a kernel that fails to launch inside it, raises;
-  there is no eager path on the card.
+  also yields the output's shape) and is then captured into the pool's
+  memory.  A failed capture, or a kernel that fails to launch inside it,
+  raises; there is no eager path on the card.
 * On the CPU (the tests) the same object runs ``e2e`` eagerly on the same
   static buffers, so the buffer discipline is the same on both devices: the
   static output is overwritten by the program's next run, and a caller that
   keeps it instead of copying it out sees the next flight's rows.
+
+The co-scheduler launches a program through its launch slots
+(:class:`LaunchSlot`), made with the program and kept for its life: a
+pinned host input and output and one event each, and on CUDA one graph
+each that copies the slot's input into the static input, runs the e2e and
+copies the static output into the slot's output.  A launch is one replay of
+that graph and the record of the slot's event on the program's stream; the
+CPU runs the same copies around an eager e2e.  A slot is held by its launch
+group until the gather has copied the rows out; a program adds a slot (one
+more capture) only when every slot it has is held.  :meth:`E2EProgram.run`
+(:meth:`~E2EProgram.load` then :meth:`~E2EProgram.replay`) and
+:meth:`~E2EProgram.copy_out` run the e2e alone on caller-made host
+buffers; on CUDA their graph is captured at the first replay.
 
 Kernel counters (``KernelCounter.calls``/``launches``) keep meaning "kernel
 executions enqueued".  The warm-up (CUDA) or the first run (CPU) counts as
@@ -38,16 +48,18 @@ Every program of one device, whichever co-scheduler made it, shares the
 process's one graph memory pool and one side stream for that device
 (:func:`capture_pool`); each program owns its graph, which goes with it.
 The programs replay on one stream in dispatch order, so the pool's
-intermediates are never live in two replays at once;
-the static input and output lie outside the pool, so another program's
-replay never writes them.  One side stream per device also keeps the
-warm-ups' cached blocks in one place: a stream per co-scheduler would
+intermediates are never live in two replays at once; the same holds for a
+program's several graphs (its slots' and its own).  The static input and
+output and the slots' host buffers lie outside the pool, so another
+program's replay never writes them.  One side stream per device also keeps
+the warm-ups' cached blocks in one place: a stream per co-scheduler would
 strand its cache when the co-scheduler goes.
 """
 from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -205,13 +217,56 @@ class GraphProbe:
         return self.out
 
 
+class LaunchSlot:
+    """The host side of one launch of an :class:`E2EProgram`, kept for the
+    next: an int32 input of the program's shape and an int32 output of its
+    static output's shape (pinned on CUDA), each with its uint32 numpy view
+    made once (residues < 2**31: the bits are the same), and on CUDA the
+    event that marks the output on the host and the graph that copies the
+    input in, runs the e2e and copies the output back (``graph`` and
+    ``event`` are None on the CPU).
+
+    ``holder`` is a weak reference to the launch group that holds the slot,
+    None while it is free: a slot whose holder is gone was dropped without
+    a gather and is free again.  ``pending`` is True from a launch until the
+    host has waited on its event."""
+
+    __slots__ = ("host_in", "in_view", "host_out", "out_view", "event",
+                 "graph", "holder", "pending")
+
+    def __init__(self, in_shape: tuple, out_shape: tuple, cuda: bool):
+        self.host_in = torch.zeros(in_shape, dtype=torch.int32,
+                                   pin_memory=cuda)
+        self.in_view = self.host_in.numpy().view(np.uint32)
+        self.host_out = torch.zeros(out_shape, dtype=torch.int32,
+                                    pin_memory=cuda)
+        self.out_view = self.host_out.numpy().view(np.uint32)
+        self.event = torch.cuda.Event() if cuda else None
+        self.graph = None
+        self.holder = None
+        self.pending = False
+
+    def held_by(self, holder) -> bool:
+        return self.holder is not None and self.holder() is holder
+
+    def wait(self):
+        """Block until the slot's last launch has left its output on the
+        host (at once when it has, or on the CPU)."""
+        if self.pending:
+            self.event.synchronize()
+            self.pending = False
+
+
 class E2EProgram:
     """``eng.e2e`` at one operand shape, with static input and output.
 
     ``shape`` is the launched operand's, ``(rows, d)`` for Dilithium and
     ``(rows, d, channels)`` for BN254; ``planes`` the engine's device
     planes.  ``capture_s`` is the host time the construction took (on CUDA
-    the warm-up and the capture)."""
+    the warm-up and the first slot's capture) and each added slot's
+    capture.  ``slots`` holds the launch slots, ``slot_grows`` the number
+    added after the first.  On CUDA a launch runs on ``stream``, the
+    device's current stream when the program was made."""
 
     def __init__(self, eng, shape: tuple, *, planes):
         t0 = time.perf_counter()
@@ -219,35 +274,94 @@ class E2EProgram:
         self.planes = planes
         self.shape = tuple(shape)
         self.device = eng.device
+        self.cuda = self.device.type == "cuda"
         self.static_in = torch.zeros(self.shape, dtype=torch.int32,
                                      device=self.device)
-        self.graph = None
-        if self.device.type == "cuda":
-            self._capture(capture_pool(self.device))
+        self.graph = None           # load/replay's graph, at first replay
+        self.slot_grows = 0
+        if self.cuda:
+            self.stream = torch.cuda.current_stream(self.device)
+            self._warm_up(capture_pool(self.device))
         else:
+            self.stream = None
             before = _counts()
             self.static_out = self._e2e().to(torch.int32)
             self.calls, self.launches = _since(before)
+        self.slots = [self._new_slot()]
         self.capture_s = time.perf_counter() - t0
 
     def _e2e(self) -> torch.Tensor:
         return self.eng.e2e(self.static_in, planes=self.planes)
 
-    def _capture(self, pool: CapturePool):
-        """Warm up on the pool's stream (which also gives the output's
-        shape), then :func:`record_graph` the e2e into the static output."""
+    def _warm_up(self, pool: CapturePool):
+        """Run the e2e on the pool's stream (counted as it runs), which
+        also gives the static output's shape, and leave the device idle."""
         current = torch.cuda.current_stream(self.device)
         pool.stream.wait_stream(current)
         with torch.cuda.stream(pool.stream):
-            shape = self._e2e().shape           # warm-up, counted as it runs
+            shape = self._e2e().shape
         self.static_out = torch.empty(shape, dtype=torch.int32,
                                       device=self.device)
         current.wait_stream(pool.stream)
-        # as torch.cuda.graph does: the capture starts on an idle device,
-        # with the warm-up done
         torch.cuda.synchronize(self.device)
-        self.graph, self.calls, self.launches, _ = record_graph(
-            lambda: self.static_out.copy_(self._e2e()), pool)
+
+    def _record(self, fn):
+        """:func:`record_graph` of ``fn`` into the device's pool, on an idle
+        device as ``torch.cuda.graph`` starts a capture; keeps the counts
+        it recorded as :attr:`calls` and :attr:`launches`."""
+        torch.cuda.synchronize(self.device)
+        graph, self.calls, self.launches, _ = record_graph(
+            fn, capture_pool(self.device))
+        return graph
+
+    def _new_slot(self) -> LaunchSlot:
+        slot = LaunchSlot(self.shape, tuple(self.static_out.shape), self.cuda)
+        if self.cuda:
+            def launch():
+                self.static_in.copy_(slot.host_in, non_blocking=True)
+                self.static_out.copy_(self._e2e())
+                slot.host_out.copy_(self.static_out, non_blocking=True)
+            slot.graph = self._record(launch)
+        return slot
+
+    def acquire(self, holder) -> LaunchSlot:
+        """A free slot, held for ``holder`` (by weak reference) until the
+        caller sets its ``holder`` back to None; a new slot, with one more
+        capture on CUDA, when every slot is held.  Waits for the slot's
+        last launch if it was dropped without a gather."""
+        for slot in self.slots:
+            if slot.holder is None or slot.holder() is None:
+                break
+        else:
+            t0 = time.perf_counter()
+            slot = self._new_slot()
+            self.slots.append(slot)
+            self.slot_grows += 1
+            self.capture_s += time.perf_counter() - t0
+        slot.wait()
+        slot.holder = weakref.ref(holder)
+        return slot
+
+    def launch(self, slot: LaunchSlot):
+        """Run the program on ``slot``'s input into its output without
+        waiting: on CUDA one replay of the slot's graph and the record of
+        its event, on :attr:`stream`; on the CPU the same copies around an
+        eager e2e."""
+        if slot.graph is None:
+            self.static_in.copy_(slot.host_in)
+            self.static_out.copy_(self._e2e())
+            slot.host_out.copy_(self.static_out)
+            return
+        slot.graph.replay()
+        slot.event.record(self.stream)
+        slot.pending = True
+        self._count_replay()
+
+    def _count_replay(self):
+        """Add the counts the capture recorded: a replay calls no wrapper."""
+        for name, c in COUNTERS.items():
+            c.calls += self.calls[name]
+            c.launches += self.launches[name]
 
     def load(self, host_operand: torch.Tensor):
         """Copy ``host_operand`` (int32, the program's shape; pinned on
@@ -259,15 +373,17 @@ class E2EProgram:
 
     def replay(self) -> torch.Tensor:
         """Run the program on the static input: one graph launch on the
-        current stream (CUDA), or ``e2e`` (CPU).  Returns the static
-        output, which the next run overwrites."""
+        current stream (CUDA; the graph is captured at the first call), or
+        ``e2e`` (CPU).  Returns the static output, which the next run
+        overwrites."""
+        if self.graph is None and self.cuda:
+            self.graph = self._record(
+                lambda: self.static_out.copy_(self._e2e()))
         if self.graph is None:
             self.static_out.copy_(self._e2e())
         else:
             self.graph.replay()
-            for name, c in COUNTERS.items():
-                c.calls += self.calls[name]
-                c.launches += self.launches[name]
+            self._count_replay()
         return self.static_out
 
     def run(self, host_operand: torch.Tensor) -> torch.Tensor:
@@ -281,7 +397,7 @@ class E2EProgram:
         the current stream, so before any later replay there, into pinned
         memory; the event marks it done.  On the CPU the copy is made at
         once and the event is None."""
-        if self.graph is None:
+        if not self.cuda:
             return self.static_out.clone(), None
         host = torch.empty(self.static_out.shape, dtype=torch.int32,
                            pin_memory=True)

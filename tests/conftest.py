@@ -99,3 +99,9 @@ try:  # pragma: no cover - exercised implicitly by every property test
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA device (skips without one); on the "
+        "card, run the files that hold such tests and import no JAX")

@@ -82,7 +82,7 @@ def test_program_rows_equal_jax_jitted_for(name, ladder):
         launched.add(shape[0])
         host, view = P.host_operand(shape, tc.device_for(workload))
         merge_operands([live], out=view)
-        got = _u32(tc._run(workload, d, host).static_out)
+        got = _u32(tc.program_for(workload, d, shape).run(host))
         want = np.asarray(jc.jitted_for(workload, d)(
             jnp.asarray(view.copy()), jc.device_planes_for(workload, d)))
         np.testing.assert_array_equal(got, want)
@@ -204,7 +204,7 @@ def test_counters_after_n_dispatches_equal_n_captured_counts(name):
     for _ in range(n):
         host, view = P.host_operand(shape, cos.device_for(workload))
         merge_operands([_operand(rng, cos, workload, d, 2)], out=view)
-        cos._run(workload, d, host)
+        cos.program_for(workload, d, shape).run(host)
     assert (K1.calls - before[0], K2.calls - before[1]) == \
         (n * want[0], n * want[1])
     assert cos.trace_counts == {(workload, d): 1}

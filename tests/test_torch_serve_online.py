@@ -167,26 +167,31 @@ class _Event:
 
 
 class _HostBuffer:
-    """Stands in for the pinned host buffer: reading it before its event
-    has been synchronised fails the test."""
+    """Stands in for a launch slot's pinned output: reading it before its
+    event has been synchronised fails the test."""
 
-    def __init__(self, tensor, event):
-        self.tensor, self.event = tensor, event
+    def __init__(self, view, event):
+        self.view, self.event = view, event
 
-    def numpy(self):
+    def copy(self):
         assert self.event.synced, "host buffer read before its event"
-        return self.tensor.numpy()
+        return self.view.copy()
 
 
 def _watched(cos, monkeypatch) -> list:
-    """Give every launch of ``cos`` a stand-in event and host buffer, as on
-    CUDA; returns the list of events handed out."""
+    """Give every launch of ``cos`` a stand-in event and host output in its
+    launch slot, as on CUDA; returns the list of events handed out."""
     events, real = [], cos._launch
 
     def launch(group):
-        g, eng, host_out, _ = real(group)
+        g, prog, slot = real(group)
         events.append(_Event())
-        return g, eng, _HostBuffer(host_out, events[-1]), events[-1]
+        slot.event, slot.pending = events[-1], True
+        view = slot.out_view
+        if isinstance(view, _HostBuffer):    # the slot's last stand-in
+            view = view.view
+        slot.out_view = _HostBuffer(view, events[-1])
+        return g, prog, slot
 
     monkeypatch.setattr(cos, "_launch", launch)
     return events
