@@ -12,6 +12,10 @@ timing, and no payload is used twice in a run.  Within a chunk the degrees
 are an exact multiset (every degree of a uniform law equally often) in an
 order drawn from the seed, so every seed asks for the same work.
 
+A coefficient is one uint32 word, or, where the coefficient law gives
+``"words": k``, a field element of k little-endian uint32 words (``high``
+may then be a decimal string), drawn by rejection from the same generator.
+
 The program's own generator (``repro_torch.core.scheduler.queue.PoissonTrace``
 and ``repro_torch.serve.client.attach_payloads``) draws the same laws; this is
 the yardstick's copy, which later changes to the program cannot move.
@@ -64,12 +68,53 @@ def buckets(law: dict) -> list[int]:
                                             int(law["high"]) + 1)})
 
 
+def element_shape(config: dict) -> tuple:
+    """The shape of one coefficient: ``()`` for a word, ``(k,)`` for a field
+    element of ``k`` words."""
+    words = config.get("coefficients", {}).get("words")
+    return () if words is None else (int(words),)
+
+
+def top_bits(high: int, k: int) -> int:
+    """The bits of the top of ``k`` words that ``[0, high)`` uses."""
+    bits = (high - 1).bit_length() - 32 * (k - 1)
+    if not 0 < bits <= 32:
+        raise ValueError(f"{k} words do not fit [0, {high}) tightly")
+    return bits
+
+
+def uniform_words(high: int, k: int, n: int, gen: torch.Generator,
+                  device) -> torch.Tensor:
+    """``n`` integers uniform in ``[0, high)`` as an (n, k) int64 tensor of
+    little-endian 32-bit words: k words drawn, the top one masked to the
+    bits ``high - 1`` needs there, and the draws not below ``high`` drawn
+    again from the same generator until none is left."""
+    top = (1 << top_bits(high, k)) - 1
+    limit = torch.tensor([(high >> (32 * w)) & 0xFFFFFFFF for w in range(k)],
+                         dtype=torch.int64, device=device)
+    out = torch.empty((n, k), dtype=torch.int64, device=device)
+    todo = torch.arange(n, device=device)
+    while len(todo):
+        x = torch.randint(0, 1 << 32, (len(todo), k), generator=gen,
+                          device=device, dtype=torch.int64)
+        x[:, -1] &= top
+        below = torch.zeros(len(todo), dtype=torch.bool, device=device)
+        equal = torch.ones(len(todo), dtype=torch.bool, device=device)
+        for w in range(k - 1, -1, -1):
+            below |= equal & (x[:, w] < limit[w])
+            equal &= x[:, w] == limit[w]
+        out[todo[below]] = x[below]
+        todo = todo[~below]
+    return out
+
+
 class RequestSource:
     """Request ``i`` of one stream: its degree and its coefficients (a uint32
-    row of that length).  ``device`` is where the coefficients are drawn
-    (in a few large calls); they are kept on the host, where requests are
-    made, each chunk's rows end to end.  ``degrees``, where given, are the
-    stream's degrees in order, in place of the configuration's law."""
+    array of shape ``(degree,) + element_shape(config)``).  ``device`` is
+    where the coefficients are drawn (in a few large calls); they are kept
+    on the host, where requests are made, each chunk's rows end to end.
+    ``degrees``, where given, are the stream's degrees in order, in place of
+    the configuration's law."""
 
     def __init__(self, config: dict, seed: int, stream: str, device="cpu",
                  chunk: int = CHUNK, degrees=None):
@@ -78,6 +123,11 @@ class RequestSource:
         if coeff["law"] != "uniform":
             raise ValueError(f"unknown coefficient law {coeff['law']!r}")
         self.low, self.high = int(coeff["low"]), int(coeff["high"])
+        self.words = int(coeff["words"]) if "words" in coeff else None
+        if self.words is not None:
+            top_bits(self.high, self.words)
+            if self.low != 0:
+                raise ValueError("a law of words draws from [0, high)")
         self.degrees = (None if degrees is None
                         else np.asarray(degrees, np.int64))
         self.seed, self.stream = seed, stream
@@ -99,11 +149,15 @@ class RequestSource:
         np.cumsum(degrees, out=offsets[1:])
         gen = torch.Generator(self.device)
         gen.manual_seed(derive_seed(self.seed, self.stream, j, "coeffs"))
-        pay = torch.randint(self.low, self.high, (int(offsets[-1]),),
-                            generator=gen, device=self.device,
-                            dtype=torch.int32)
-        self._chunks[j] = (degrees, offsets,
-                           pay.cpu().numpy().view(np.uint32))
+        n = int(offsets[-1])
+        if self.words is None:
+            pay = torch.randint(self.low, self.high, (n,), generator=gen,
+                                device=self.device, dtype=torch.int32)
+            pay = pay.cpu().numpy().view(np.uint32)
+        else:
+            pay = uniform_words(self.high, self.words, n, gen, self.device)
+            pay = pay.cpu().numpy().astype(np.uint32)
+        self._chunks[j] = (degrees, offsets, pay)
 
     def prefetch(self, n: int):
         """Draw every chunk that requests ``0 .. n-1`` fall in."""

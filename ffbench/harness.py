@@ -325,10 +325,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     }
     kind = torch.cuda.get_device_name(0) if on_card else "cpu"
     if summary is not None:
-        limbs = work.limbs_for(int(cfg["modulus"]))
+        shape = work.launch_shape(cfg)
         peak = work.peaks(kind) if on_card else None
         summary["least_s"] = sum(
-            work.launch_least_s(r.d_bucket, r.live_rows, limbs, peak)
+            work.launch_least_s(r.d_bucket, r.live_rows, peak=peak, **shape)
             for r in traced_launches) if peak else 0.0
         summary["power_limit"] = power_limit() if on_card else None
         rec["trace"] = summary

@@ -1,5 +1,6 @@
 """The generator: deterministic from the seed, no payload twice in a run,
 the same work for every seed."""
+import hashlib
 import json
 from pathlib import Path
 
@@ -42,9 +43,9 @@ def test_a_stream_of_given_degrees_draws_them_in_order():
     assert len({r.tobytes() for _, r in got}) == len(degrees)
 
 
-@pytest.mark.parametrize("name", ["mldsa_d256", "dilithium_mix"])
-def test_no_payload_repeats_within_a_run(name):
-    cfg = _config(name)
+@pytest.mark.parametrize("name", ["mldsa_d256", "dilithium_mix", "bn254"])
+def test_no_payload_repeats_within_a_run(name, bn254_config):
+    cfg = bn254_config if name == "bn254" else _config(name)
     rows = set()
     for stream in ("prime", "warmup", "window", "trace_window"):
         src = gen.RequestSource(cfg, BIG, stream, chunk=128)
@@ -85,3 +86,72 @@ def test_seeds_past_32_bits_are_taken_whole():
     assert gen.derive_seed(2**33 + 5, "x") != gen.derive_seed(5, "x")
     assert gen.derive_seed(2**31 + 1, "x", 3) == gen.derive_seed(
         2**31 + 1, "x", 3)
+
+
+# sha256 of chunk 0 of the window stream at seed BIG (each request's degree
+# as int64, then its words), as the draw of one uint32 word a coefficient
+# gives it; multi-word coefficients left it unchanged
+DIGESTS = {
+    "mldsa_d256":
+        "f1b20d266ac1cb0b3cf2b8d1dffb3a342e52a799ca21d64078ce26fcc13256d8",
+    "dilithium_mix":
+        "11a06b747ee5a09f0e02d36dfd0b9eae7aa885bb562eee6b8402ab1844f6d65f",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS))
+def test_one_word_draws_are_pinned(name):
+    src = gen.RequestSource(_config(name), BIG, "window")
+    h = hashlib.sha256()
+    for i in range(gen.CHUNK):
+        d, row = src.get(i)
+        h.update(np.int64(d).tobytes())
+        h.update(row.tobytes())
+    assert h.hexdigest() == DIGESTS[name]
+
+
+def _value(words) -> int:
+    return sum(int(w) << (32 * k) for k, w in enumerate(words))
+
+
+def test_word_draws_are_field_elements_of_the_seed_stream_and_index(
+        bn254_config):
+    r = int(bn254_config["modulus"])
+    a = gen.RequestSource(bn254_config, BIG, "window", chunk=32)
+    b = gen.RequestSource(bn254_config, BIG, "window", chunk=32)
+    b.prefetch(100)
+    for i in (0, 31, 32, 99, 70):
+        da, ra = a.get(i)
+        db, rb = b.get(i)
+        assert da == db and np.array_equal(ra, rb)
+        assert ra.dtype == np.uint32 and ra.shape == (da, 8)
+        assert all(_value(c) < r for c in ra)
+    c = gen.RequestSource(bn254_config, BIG + 1, "window", chunk=32)
+    assert not np.array_equal(a.get(5)[1], c.get(5)[1])
+    # uniform in [0, r): the top word below r's, the mean value r / 2
+    coeffs = np.concatenate([a.get(i)[1] for i in range(32)])
+    assert coeffs[:, 7].max() < (r >> 224) + 1
+    mean = np.mean([_value(c) / r for c in coeffs])
+    assert mean == pytest.approx(0.5, abs=0.03)
+
+
+def test_words_are_little_endian():
+    """[0, 3 * 2**31) in two words: the second word is the high one."""
+    cfg = {"degrees": {"law": "fixed", "d": 64},
+           "coefficients": {"law": "uniform", "low": 0,
+                            "high": str(3 << 31), "words": 2}}
+    src = gen.RequestSource(cfg, BIG, "window", chunk=16)
+    x = np.concatenate([src.get(i)[1] for i in range(16)]).astype(np.int64)
+    assert set(x[:, 1]) == {0, 1}
+    assert x[x[:, 1] == 1, 0].max() < 1 << 31
+    assert x[x[:, 1] == 0, 0].max() >= 1 << 31
+    assert np.mean(x[:, 1]) == pytest.approx(1 / 3, abs=0.03)
+
+
+def test_word_laws_that_do_not_fit_are_refused(bn254_config):
+    bn254_config["coefficients"]["words"] = 9
+    with pytest.raises(ValueError):
+        gen.RequestSource(bn254_config, BIG, "window")
+    bn254_config["coefficients"].update(words=8, low=1)
+    with pytest.raises(ValueError):
+        gen.RequestSource(bn254_config, BIG, "window")

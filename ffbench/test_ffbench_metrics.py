@@ -98,6 +98,35 @@ def test_least_work_of_one_d256_launch_of_8_rows():
     assert 9437184 / 1.979e15 < 212992 / 3.35e12
 
 
+def test_least_work_of_one_bn254_d512_launch_of_8_rows(bn254_config):
+    shape = work.launch_shape(bn254_config)
+    # 31-bit channels at 4 bytes, 18 of them; elements of 8 words in and out
+    assert shape == {"limbs": 4, "channels": 18, "element_bytes": 32}
+    # 8 rows in and out at 32 bytes an element, 18 matrices 512 x 512 at 4
+    assert work.launch_bytes(512, 8, **shape) == (8 * 512 * 32 * 2
+                                                  + 18 * 512 * 512 * 4)
+    assert work.launch_bytes(512, 8, **shape) == 19136512
+    # 512 x 512 products a row and channel, 4 x 4 byte products, 2 ops each
+    assert work.launch_ops(512, 8, 4, 18) == 18 * 8 * 512 * 512 * 16 * 2
+    assert work.launch_ops(512, 8, 4, 18) == 1207959552
+    peak = work.peaks("NVIDIA H100 80GB HBM3")
+    assert work.launch_least_s(512, 8, peak=peak, **shape) == pytest.approx(
+        19136512 / 3.35e12)                # bytes bound: 5.71 us
+    assert 1207959552 / 1.979e15 < 19136512 / 3.35e12
+
+
+@pytest.mark.parametrize("name", ["mldsa_d256", "dilithium_mix"])
+def test_a_configuration_without_work_is_counted_as_before(name):
+    cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
+    shape = work.launch_shape(cfg)
+    assert shape == {"limbs": 3, "channels": 1, "element_bytes": 4}
+    peak = work.peaks("NVIDIA H100 80GB HBM3")
+    for d, rows in ((64, 1), (256, 8), (512, 128)):
+        assert work.launch_least_s(d, rows, peak=peak, **shape) == max(
+            (2 * rows * d * 4 + d * d * 3) / peak["hbm_bytes_per_s"],
+            2 * 3 * 3 * rows * d * d / peak["int8_ops_per_s"])
+
+
 def _ev(name, start, end, device="cuda", annotation=False):
     return (name, device == "cuda", annotation, start, end)
 

@@ -1,12 +1,15 @@
-"""The plain reference against Python integers, and the benchmark's
-independence from the JAX package."""
+"""The plain references against Python integers, the comparison that
+decides ``correct``, and the benchmark's independence from the JAX
+package."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from ffbench import check
+from ffbench import check, gen
+from ffbench.reference import bn254_fr_ntt as B
 from ffbench.reference import negacyclic_ntt as R
 
 Q = 8380417
@@ -84,5 +87,109 @@ def test_no_benchmark_module_imports_jax_or_the_jax_package(path):
 
 
 def test_reference_imports_nothing_of_the_program():
-    assert "repro_torch" not in _imported_top_levels(
-        HERE / "reference" / "negacyclic_ntt.py")
+    for path in (HERE / "reference").glob("*.py"):
+        assert "repro_torch" not in _imported_top_levels(path), path.name
+
+
+# --- BN254: field elements of 8 words ------------------------------------------
+
+RB = B.R
+
+
+def _words(v: int) -> list[int]:
+    return [(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+
+
+def _value(words) -> int:
+    return sum(int(w) << (32 * k) for k, w in enumerate(words))
+
+
+def _bn254_rows(d: int, seed: int) -> list[list[int]]:
+    """Seeded rows of bucket d: uniform, the worst case (every coefficient
+    r - 1), and a short row zero-padded to the bucket."""
+    g = np.random.default_rng(seed)
+
+    def uniform(n):
+        return [int.from_bytes(g.bytes(32), "little") % RB for _ in range(n)]
+    return [uniform(d), [RB - 1] * d, uniform(d - d // 3) + [0] * (d // 3)]
+
+
+def _as_words(rows) -> torch.Tensor:
+    return torch.tensor([[_words(v) for v in row] for row in rows],
+                        dtype=torch.int64)
+
+
+def _bigint_transform(row: list[int]) -> list[int]:
+    d = len(row)
+    omega = R.primitive_root(RB, d)
+    powers = [pow(omega, k, RB) for k in range(d)]
+    return [sum(a * powers[i * j % d] for i, a in enumerate(row)) % RB
+            for j in range(d)]
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_bn254_transform_equals_python_bigints(d):
+    rows = _bn254_rows(d, d)
+    y = B.transform(_as_words(rows), RB)
+    assert y.shape == (len(rows), d, 8) and y.dtype == torch.int64
+    for r, row in enumerate(rows):
+        assert [_value(e) for e in y[r]] == _bigint_transform(row)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+def test_bn254_omega_has_order_exactly_d(d):
+    omega = R.primitive_root(RB, d)
+    assert omega == pow(5, (RB - 1) // d, RB)
+    assert pow(omega, d, RB) == 1 and pow(omega, d // 2, RB) != 1
+    w = B.twiddles(d, RB)
+    assert sum(int(v) << (16 * k) for k, v in enumerate(w[1, 1])) == omega
+
+
+def test_bn254_control_in_float32_comes_out_wrong():
+    g = torch.Generator().manual_seed(4)
+    cfg = {"modulus": str(RB), "reference": "bn254_fr_ntt",
+           "coefficients": {"words": 8}}
+    src = gen.uniform_words(RB, 8, 16 * 64, g, "cpu").numpy().astype(
+        np.uint32).reshape(16, 64, 8)
+    ans = [(c, None) for c in src]
+    assert check.compare(ans, cfg, "cpu", control=torch.float32) == 16
+    assert check.compare(ans, cfg, "cpu", control=torch.float64) == 0
+
+
+def test_compare_takes_element_rows(bn254_config):
+    """Drawn by the generator, compared by ``check.compare``: right rows
+    read 0, one flipped word 1, a row of one word an element wrong."""
+    src = gen.RequestSource(bn254_config, 2**31 + 5, "window", chunk=8,
+                            degrees=[300] * 8)
+    coeffs = [src.get(i)[1] for i in range(8)]
+    padded = np.zeros((8, 512, 8), np.int64)
+    for k, c in enumerate(coeffs):
+        padded[k, :len(c)] = c
+    rows = B.transform(torch.from_numpy(padded), RB).numpy().astype(np.uint32)
+    assert [_value(e) for e in rows[0]] == _bigint_transform(
+        [_value(c) for c in padded[0]])
+    ans = list(zip(coeffs, rows))
+    assert check.compare(ans, bn254_config, "cpu") == 0
+    flipped = rows[3].copy()
+    flipped[100, 5] ^= 1 << 7
+    ans[3] = (coeffs[3], flipped)
+    assert check.compare(ans, bn254_config, "cpu") == 1
+    ans[3] = (coeffs[3], rows[3][:, 0])          # (b,): no element shape
+    assert check.compare(ans, bn254_config, "cpu") == 1
+    ans[3] = (coeffs[3], rows[3][:256])          # another bucket's length
+    assert check.compare(ans, bn254_config, "cpu") == 1
+
+
+@pytest.mark.chip
+def test_bn254_transform_on_card_equals_python_bigints(cuda_device):
+    for d in (64, 512):
+        rows = _bn254_rows(d, d + 1)
+        x = _as_words(rows)
+        y = B.transform(x.to(cuda_device), RB).cpu()
+        for r, row in enumerate(rows):
+            assert [_value(e) for e in y[r]] == _bigint_transform(row)
+        # and a larger block equal to the CPU's, row for row
+        big = gen.uniform_words(RB, 8, 64 * d, torch.Generator().manual_seed(d),
+                                "cpu").reshape(64, d, 8)
+        assert torch.equal(B.transform(big.to(cuda_device), RB).cpu(),
+                           B.transform(big, RB))
