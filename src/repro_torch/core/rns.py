@@ -7,8 +7,13 @@ field through a Montgomery reduction whose base-extension matrix-vector
 products are the >2,100 limb-level operations the paper counts.
 
 CRT recovery — and hence the F_p result — is exact whenever the true integer
-value stays below M = Π m_i (≈ 2**248 for the 9-residue chain); the
-18-channel chain (``bn254_full``) makes full-range d≤256 products exact.
+value stays below M = Π m_i (≈ 2**248 for the 9-residue chain).  A transform
+of canonical inputs (coefficients and twiddles below p) reaches at most
+d·(p − 1)², so the 18-channel chain (``bn254_full``, M of 527 bits) is exact
+while d·(p − 1)² < M: M / (p − 1)² has 20 bits, so for every d ≤ 2**19.
+
+An element of F_p enters and leaves the served path as little-endian 32-bit
+words (:func:`words_to_rns`, and ``rns_to_field``'s digits packed to words).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from repro_torch.core import primes as P
 from repro_torch.core import wordarith as W
 
 TWO_ADICITY = 17  # supports negacyclic transforms up to d = 2**16
+WORD_BITS = 32
+WORD_MASK = (1 << WORD_BITS) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +63,17 @@ class RnsChain:
     def moduli(self) -> tuple:
         return self.base + (self.redundant,)
 
+    @property
+    def n_words(self) -> int:
+        """32-bit words an element of F_p takes (8 for BN254's r)."""
+        return -(-self.p.bit_length() // WORD_BITS)
+
+    def word_weights(self) -> np.ndarray:
+        """(n_words, n+1) int64: 2**(32k) mod m_c, the weight of word k in
+        channel c."""
+        return np.array([[pow(2, WORD_BITS * k, m) for m in self.moduli]
+                         for k in range(self.n_words)], np.int64)
+
     def tensors(self, device) -> dict:
         """The chain's constants on ``device``, uploaded once per device.
         Under a fake tensor mode (a plan over a mesh) they are made as that
@@ -68,6 +86,8 @@ class RnsChain:
             def up(a):
                 return torch.as_tensor(np.asarray(a, np.int64), device=device)
             consts = {"base": up(self.base),
+                      "moduli": up(self.moduli),
+                      "word_weights": up(self.word_weights()),
                       "inv_Mi_mod_mi": up(self.inv_Mi_mod_mi),
                       "Ti_digits": up(self.Ti_digits),
                       "V_digits": up(self.V_digits)[None, :]}
@@ -125,6 +145,22 @@ def from_rns_np(res: np.ndarray, chain: RnsChain) -> np.ndarray:
         mi = chain.M // m
         out = out + res[..., i].astype(object) * (int(chain.inv_Mi_mod_mi[i]) * mi)
     return out % chain.M
+
+
+# --- Device: words of F_p to residues ------------------------------------------
+
+
+def words_to_rns(words: torch.Tensor, chain: RnsChain) -> torch.Tensor:
+    """(..., n_words) little-endian 32-bit words of integers, as int64 or as
+    int32 holding their bits  ->  (..., n+1) int64 residues.
+
+    r_c = Σ_k w_k·(2**(32k) mod m_c) mod m_c: each product is below
+    2**32·2**31 = 2**63, and the n_words reduced terms sum below 2**34.
+    """
+    c = chain.tensors(words.device)
+    w = words.to(torch.int64) & WORD_MASK
+    m = c["moduli"]
+    return torch.remainder(w[..., None] * c["word_weights"], m).sum(-2) % m
 
 
 # --- Device: Shenoy–Kumaresan α + Montgomery reduction to F_p -----------------

@@ -145,7 +145,8 @@ class SliceCoScheduler:
     ``device`` is one device spec or a list of them (default: every CUDA
     device; raises without one — pass ``device="cpu"`` for the plain
     versions).  The devices are split evenly between Dilithium and BN254
-    (both share the one device when there is one).  ``reduction`` sets the
+    (both share the one device when there is one); ``bn254_full`` runs on
+    the BN254 group.  ``reduction`` sets the
     default fold discipline and ``reduction_by_workload`` overrides it per
     class; mode strings and κ are validated here.  The JAX constructor's
     explicit ``assignment`` map has no caller and is not ported.
@@ -160,8 +161,9 @@ class SliceCoScheduler:
                  host: int | None = None, device=None):
         self.devices = resolve_devices(device)
         half = max(1, len(self.devices) // 2)
-        self.assignment = {"dilithium": self.devices[:half],
-                           "bn254": self.devices[half:] or self.devices}
+        bn254 = self.devices[half:] or self.devices
+        self.assignment = {w: self.devices[:half] if w == "dilithium"
+                           else bn254 for w in WK.CLASSES}
         self.accum = accum
         self.reduction = G.check_reduction(reduction)
         self.reduction_by_workload = dict(reduction_by_workload or {})
@@ -239,11 +241,16 @@ class SliceCoScheduler:
 
     def operand_shape(self, workload: str, d: int, n_c: int) -> tuple:
         """Device operand shape of one ``n_c``-live-row launch (ladder-padded
-        when a row ladder is configured)."""
+        when a row ladder is configured), in the class's request form
+        (:data:`repro_torch.core.workloads.REQUEST_FORMS`)."""
         rows = self.launch_rows(n_c)
-        if workload == "dilithium":
+        form = WK.REQUEST_FORMS[workload]
+        if form == "word":
             return (rows, d)
-        return (rows, d, self.engine_for(workload, d).n_channels)
+        eng = self.engine_for(workload, d)
+        if form == "element":
+            return (rows, d, eng.chain.n_words)
+        return (rows, d, eng.n_channels)
 
     def capture(self, workload: str, d: int, shape: tuple) -> E2EProgram:
         """A new program of ``(workload, d)`` at operand ``shape`` on the
@@ -284,18 +291,26 @@ class SliceCoScheduler:
     def program_stats(self) -> dict:
         """Captures, their host seconds, the launch slots the programs hold
         (``slots``) and those added after each program's first
-        (``slot_grows``), and the memory of each CUDA device's graph pool
+        (``slot_grows``), the memory of each CUDA device's graph pool
         (:meth:`CapturePool.bytes`; the pool is the process's, shared with
-        other co-schedulers on the device)."""
+        other co-schedulers on the device), and ``stage_ops``: per
+        ``"<workload>/d<bucket>"``, the ATen ops a run of its program makes
+        by stage (:attr:`E2EProgram.stage_ops`; the same at every launch
+        height)."""
         progs = [p for cache in self._programs.values()
                  for p in cache.values()]
+        stage_ops = {}
+        for (workload, d), cache in self._programs.items():
+            for prog in cache.values():
+                stage_ops.setdefault(f"{workload}/d{d}", prog.stage_ops)
         return {"captures": len(progs),
                 "capture_s": sum(p.capture_s for p in progs),
                 "slots": sum(len(p.slots) for p in progs),
                 "slot_grows": sum(p.slot_grows for p in progs),
                 "pool_bytes": {str(dev): capture_pool(dev).bytes()
                                for dev in self.devices
-                               if dev.type == "cuda"}}
+                               if dev.type == "cuda"},
+                "stage_ops": stage_ops}
 
     # --- group planning + launch ----------------------------------------------
 
@@ -322,12 +337,15 @@ class SliceCoScheduler:
         return groups
 
     def _member_operand(self, batch: StackedBatch, eng) -> np.ndarray:
-        if batch.workload == "dilithium":
-            return np.asarray(batch.operand, np.uint32)    # (N, d)
-        if batch.operand.ndim == 2:                        # raw words → residues
+        """A batch's operand in its class's request form: Dilithium (N, d)
+        words and ``bn254_full`` (N, d, 8) element words as they come (the
+        program turns words into residues on the device); ``bn254``
+        residues (N, d, C), or raw integers (N, d) ingested here."""
+        if WK.REQUEST_FORMS[batch.workload] == "residues" \
+                and batch.operand.ndim == 2:
             from repro_torch.core import rns as R
             return R.to_rns_np(batch.operand.astype(object), eng.chain)
-        return np.asarray(batch.operand, np.uint32)        # (N, d, C)
+        return np.asarray(batch.operand, np.uint32)
 
     def _launch(self, group: _LaunchGroup):
         """Enqueue one launch group on its workload's device through a

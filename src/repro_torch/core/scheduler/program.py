@@ -1,11 +1,14 @@
 """Captured e2e programs: the port's counterpart of the JAX co-scheduler's
 compiled ``jax.jit(eng.e2e)``.
 
-An :class:`E2EProgram` is one engine's whole ``e2e`` (every staging pass's
-K1 GEMM and K2 fold on every channel, and for BN254 the ``rns_to_field``
-reduction) at one operand shape.  It owns a static int32 input on the
+An :class:`E2EProgram` is one engine's whole served e2e (``eng.serve``:
+every staging pass's K1 GEMM and K2 fold on every channel, and for BN254 the
+``rns_to_field`` reduction; for ``bn254_full`` also the words of its field
+elements turned into residues before and the result's digits packed into
+words after) at one operand shape.  It owns a static int32 input on the
 engine's device, the engine's twiddle planes (uploaded once, by the engine)
-and a static int32 output.
+and a static int32 output.  Both hold uint32 bits: residues below 2**31, or
+the full 32-bit words of a field element.
 
 * On CUDA the e2e runs once on the pool's side stream (the warm-up, which
   also yields the output's shape) and is then captured into the pool's
@@ -28,6 +31,10 @@ more capture) only when every slot it has is held.  :meth:`E2EProgram.run`
 (:meth:`~E2EProgram.load` then :meth:`~E2EProgram.replay`) and
 :meth:`~E2EProgram.copy_out` run the e2e alone on caller-made host
 buffers; on CUDA their graph is captured at the first replay.
+
+The warm-up (CUDA) or the first run (CPU) also runs under a
+:class:`StageOps` census: the ATen ops of one run by stage, kept as
+:attr:`E2EProgram.stage_ops`.
 
 Kernel counters (``KernelCounter.calls``/``launches``) keep meaning "kernel
 executions enqueued".  The warm-up (CUDA) or the first run (CPU) counts as
@@ -63,6 +70,7 @@ import weakref
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import zones
 from repro_torch.kernels import graph_census
@@ -88,6 +96,43 @@ def _since(before: dict) -> tuple[dict, dict]:
 def _restore(counts: dict):
     for name, (calls, launches) in counts.items():
         COUNTERS[name].calls, COUNTERS[name].launches = calls, launches
+
+
+# the scopes that mark the stages of a served e2e other than the channels'
+# transforms, and each stage's name
+STAGE_SCOPES = (("bn254_ingest", "ingest"), ("vpu_montgomery", "reduce"),
+                ("bn254_pack", "pack"))
+STAGES = ("ingest", "channels", "reduce", "pack")
+
+
+class StageOps(TorchDispatchMode):
+    """The non-view ATen ops run inside the block, outside the K1/K2/K3
+    wrappers (whose work is the kernels), counted by stage: ``ingest``,
+    ``reduce`` and ``pack`` by the scope path (:data:`STAGE_SCOPES`), every
+    other op (the channels' limb splits, recombinations and stacking) in
+    ``channels``.  Each is one device kernel or copy of a run on the card,
+    or an allocation."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = dict.fromkeys(STAGES, 0)
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # False keeps PyTorch from wrapping __torch_dispatch__ in
+        # torch._disable_dynamo, whose first call imports torch._dynamo
+        # (seconds, inside the server's set-up); nothing here compiles
+        return False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func.namespace == "aten" and not func.is_view
+                and not zones.in_kernel_call()):
+            path = zones.current_path()
+            stage = next((name for scope, name in STAGE_SCOPES
+                          if scope in path), "channels")
+            self.counts[stage] += 1
+        return out
 
 
 class CapturePool:
@@ -221,7 +266,7 @@ class LaunchSlot:
     """The host side of one launch of an :class:`E2EProgram`, kept for the
     next: an int32 input of the program's shape and an int32 output of its
     static output's shape (pinned on CUDA), each with its uint32 numpy view
-    made once (residues < 2**31: the bits are the same), and on CUDA the
+    made once (the buffers hold uint32 bits), and on CUDA the
     event that marks the output on the host and the graph that copies the
     input in, runs the e2e and copies the output back (``graph`` and
     ``event`` are None on the CPU).
@@ -258,15 +303,17 @@ class LaunchSlot:
 
 
 class E2EProgram:
-    """``eng.e2e`` at one operand shape, with static input and output.
+    """``eng.serve`` at one operand shape, with static input and output.
 
-    ``shape`` is the launched operand's, ``(rows, d)`` for Dilithium and
-    ``(rows, d, channels)`` for BN254; ``planes`` the engine's device
-    planes.  ``capture_s`` is the host time the construction took (on CUDA
-    the warm-up and the first slot's capture) and each added slot's
-    capture.  ``slots`` holds the launch slots, ``slot_grows`` the number
-    added after the first.  On CUDA a launch runs on ``stream``, the
-    device's current stream when the program was made."""
+    ``shape`` is the launched operand's, ``(rows, d)`` for Dilithium,
+    ``(rows, d, channels)`` for ``bn254`` and ``(rows, d, 8)`` for
+    ``bn254_full``; ``planes`` the engine's device planes.  ``capture_s`` is
+    the host time the construction took (on CUDA the warm-up and the first
+    slot's capture) and each added slot's capture.  ``slots`` holds the
+    launch slots, ``slot_grows`` the number added after the first.
+    ``stage_ops`` is the :class:`StageOps` count of the warm-up (CUDA) or
+    the first run (CPU).  On CUDA a launch runs on ``stream``, the device's
+    current stream when the program was made."""
 
     def __init__(self, eng, shape: tuple, *, planes):
         t0 = time.perf_counter()
@@ -285,21 +332,26 @@ class E2EProgram:
         else:
             self.stream = None
             before = _counts()
-            self.static_out = self._e2e().to(torch.int32)
+            with StageOps() as census:
+                out = self._e2e()
+            self.stage_ops = census.counts
+            self.static_out = out.to(torch.int32)
             self.calls, self.launches = _since(before)
         self.slots = [self._new_slot()]
         self.capture_s = time.perf_counter() - t0
 
     def _e2e(self) -> torch.Tensor:
-        return self.eng.e2e(self.static_in, planes=self.planes)
+        return self.eng.serve(self.static_in, planes=self.planes)
 
     def _warm_up(self, pool: CapturePool):
-        """Run the e2e on the pool's stream (counted as it runs), which
-        also gives the static output's shape, and leave the device idle."""
+        """Run the e2e on the pool's stream (counted as it runs, its ATen
+        ops by stage), which also gives the static output's shape, and
+        leave the device idle."""
         current = torch.cuda.current_stream(self.device)
         pool.stream.wait_stream(current)
-        with torch.cuda.stream(pool.stream):
+        with torch.cuda.stream(pool.stream), StageOps() as census:
             shape = self._e2e().shape
+        self.stage_ops = census.counts
         self.static_out = torch.empty(shape, dtype=torch.int32,
                                       device=self.device)
         current.wait_stream(pool.stream)

@@ -7,6 +7,13 @@
   reduction (paper §6.2).  ``n_channels=18`` selects the extended
   full-exactness chain (``bn254_full``).
 
+Each class's requests take one form on the served path
+(:data:`REQUEST_FORMS`), and :meth:`serve` is the e2e that takes it: a
+Dilithium row is one uint32 word a coefficient; a ``bn254`` row is residues
+over its 9 channels (the JAX package's form); a ``bn254_full`` row is field
+elements of F_r as 8 little-endian uint32 words, turned into residues and
+back into words on the device (``BN254Engine.e2e_words``).
+
 An engine lives on one device (CUDA unless ``device="cpu"``) and takes and
 returns tensors there.  Its transform runs every staging-pass GEMM through
 the ``limb_matmul`` kernel and every fold through ``mont_fold``; on the CPU
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.core import field as F
 from repro_torch.core import limb_gemm as G
+from repro_torch.core import montgomery as MG
 from repro_torch.core import ntt as NTT
 from repro_torch.core import rns as R
 from repro_torch.core import zones as Z
@@ -50,6 +58,13 @@ BN254_FULL = WorkloadClass("bn254_full", precision_zone=4, data_limbs=4,
                            tw_limbs=4, n_channels=18)
 
 CLASSES = {c.name: c for c in (DILITHIUM, BN254, BN254_FULL)}
+
+# class -> the form of its served requests: "word" (one uint32 a
+# coefficient, operand (rows, d)), "residues" (operand (rows, d, channels);
+# raw integers (rows, d) are ingested on the host) or "element" (a field
+# element of ``chain.n_words`` uint32 words, operand (rows, d, n_words))
+REQUEST_FORMS = {"dilithium": "word", "bn254": "residues",
+                 "bn254_full": "element"}
 
 
 def _fold_profile(plans, reduction: str, kappa: int | None,
@@ -157,6 +172,11 @@ class DilithiumEngine:
 
     e2e = evaluate  # Dilithium op == the forward transform
 
+    def serve(self, a, *, kernel_fn=None, fold_fn=None, planes=None):
+        """The e2e of the class's served request form: ``e2e`` on words."""
+        return self.e2e(a, kernel_fn=kernel_fn, fold_fn=fold_fn,
+                        planes=planes)
+
     def oracle_np(self, a_np: np.ndarray) -> np.ndarray:
         w = NTT.ntt_matrix(self.d, F.DILITHIUM_Q, negacyclic=self.negacyclic)
         return NTT.matrix_ntt_oracle_np(a_np, w, F.DILITHIUM_Q)
@@ -198,6 +218,7 @@ class BN254Engine:
         self.fold_profile = _fold_profile(self.plans, self.reduction, kappa,
                                           d_tile)
         self._device_planes = None
+        self.request = REQUEST_FORMS[self.wclass.name]
 
     @property
     def n_channels(self) -> int:
@@ -253,6 +274,35 @@ class BN254Engine:
         """The paper's BN254 op for N stacked tenant rows."""
         return self.reduce(self.evaluate(a_res, kernel_fn=kernel_fn,
                                          fold_fn=fold_fn, planes=planes))
+
+    def ingest_words(self, words) -> torch.Tensor:
+        """(N, d, n_words) little-endian words of field elements (int32
+        holding uint32 bits, or any integer dtype) -> (N, d, C) int64
+        residues, on the engine's device."""
+        dev = self.device
+        with Z.workload_zone("bn254", dev), Z.scope("bn254_ingest", dev):
+            return R.words_to_rns(_operand(words, dev), self.chain)
+
+    def pack_words(self, digits: torch.Tensor) -> torch.Tensor:
+        """(N, d, nred) field digits -> (N, d, n_words) int64 words (each
+        < 2**32) of the canonical element; the digits' top word is 0."""
+        dev = self.device
+        with Z.workload_zone("bn254", dev), Z.scope("bn254_pack", dev):
+            return MG.digits_to_words_u32(digits)[..., :self.chain.n_words]
+
+    def e2e_words(self, words, *, kernel_fn=None, fold_fn=None, planes=None):
+        """The served ``bn254_full`` op: (N, d, n_words) words of field
+        elements -> (N, d, n_words) words of y mod p, every step on the
+        engine's device."""
+        return self.pack_words(self.e2e(self.ingest_words(words),
+                                        kernel_fn=kernel_fn, fold_fn=fold_fn,
+                                        planes=planes))
+
+    def serve(self, operand, *, kernel_fn=None, fold_fn=None, planes=None):
+        """The e2e of the class's served request form (``request``)."""
+        e2e = self.e2e_words if self.request == "element" else self.e2e
+        return e2e(operand, kernel_fn=kernel_fn, fold_fn=fold_fn,
+                   planes=planes)
 
     # --- host oracles ---------------------------------------------------------
 

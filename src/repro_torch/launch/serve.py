@@ -191,7 +191,7 @@ def _validate(cos, workload: str, batch):
     zeros = torch.zeros(cos.operand_shape(workload, batch.d_bucket,
                                           batch.n_c),
                         dtype=torch.int32, device=cos.device_for(workload))
-    rep = V.validate_fn(eng.e2e, zeros,
+    rep = V.validate_fn(eng.serve, zeros,
                         **V.checks_for(eng, cos.reduction_for(workload)))
     check_launch_census(eng, rep.n_dots, rep.n_folds,
                         f"{workload}/d{batch.d_bucket}")

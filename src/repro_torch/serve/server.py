@@ -803,7 +803,7 @@ class CryptoServer:
         donate = (0,) if self.cos.donate else ()
 
         def _e2e(operand, planes):
-            return eng.e2e(operand, planes=planes)
+            return eng.serve(operand, planes=planes)
 
         rep = V.validate_fn(_e2e, *args, donate_argnums=donate,
                             **V.checks_for(eng, self.cos.reduction_for(
