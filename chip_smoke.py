@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
    9.0), ``nvcc``'s version, the build of the CUDA kernels (and the graph
    reader) from ``src/repro_torch/csrc`` and
    each kernel instance's registers and spills from the build's ptxas
-   report (``k1_resources``, ``k2_resources``, ``k3_resources``);
+   report (``k1_resources``, ``k2_resources``, ``k3_resources``,
+   ``redc_resources``);
 2. kernels — ``limb_matmul`` (K1) and ``mont_fold`` (K2) against their plain
    PyTorch versions on the card, bit for bit, at every main-path shape and
    at edge cases (for K2: every n_diag from 1 to 8 with every int32 edge on
@@ -28,6 +29,12 @@ Phases, each printing one JSON line:
    the eager pass's after every buffer was overwritten; and the launch
    path of one K1 call split into the bare ctypes launch, the ``*_cuda``
    wrapper and the full ``ops`` call, with K2's full ``ops`` call beside it;
+   then one ``redc`` line: ``rns_redc`` against its plain version
+   (``rns_to_field``, its digits packed to words) on the card, bit for bit,
+   in both forms, at the served shapes (8, d, 18), d = 64 … 512, (128, 512,
+   18) and (8, 256, 9), edge elements in the first rows, one launch a call;
+   its times in the words form beside its grid, its bound, the digits
+   form, and the plain version op by op and as one captured graph;
 3. engines — Dilithium at d ∈ {64, 128, 256, 512} (eager fp32 and lazy
    int32, κ = 2) and a per-plane staged transform against an int64 numpy
    oracle; BN254 (d = 64, 9 channels) against the same engine on the CPU;
@@ -79,15 +86,16 @@ Phases, each printing one JSON line:
    capture's warm-up and the warm-up of each class's validation probe
    (``serve_crypto`` validates every class before its first dispatch), and
    every program's recorded K1/K2 calls (no K3 launch: the replay does not
-   take the fused path).  The line gives the
+   take the fused path; one ``rns_redc`` launch a BN254 program).  The line gives the
    cold run's wall time and launches (``wall_s``, as a first replay on a
    fresh co-scheduler), the warm run's under ``warm``, captures, their host
    seconds and the graph pool's bytes; then two more warm runs of the paper
    trace split its wall time (``profile``: host timers around the programs'
    slot launches, one graph replay each with the H2D and D2H copies inside,
    and the waits on their events;
-   torch.profiler for device time, whose K1/K2 kernel events must equal the
-   counted launches, and are the kernel table's K1/K2 ``launches``), and
+   torch.profiler for device time, whose K1/K2 and ``rns_redc`` kernel
+   events must equal the counted launches, and are the kernel table's
+   ``launches`` of the three), and
    one BN254 and one Dilithium dispatch time their program against the
    same ``e2e`` called op by op;
 7. validator — the structural validator (``repro_torch.core.validator``)
@@ -275,7 +283,8 @@ Phases, each printing one JSON line:
    equal to the single-controller form it runs itself (gloo cannot send a
    CUDA tensor, so GPipe does not run there).
 
-Eleven short calls run the first phase and stop: ``--k3`` adds K3's checks
+Twelve short calls run the first phase and stop: ``--redc`` adds
+``rns_redc``'s checks and times, ``--k3`` adds K3's checks
 and times (for a change to K3), ``--k2`` K2's checks, times and pass spans
 and K3's checks (for a change to the fold, which K3 shares), ``--variants``
 the variants phase, ``--validator`` the validator phase, ``--online`` the online phase, with the CPU replays of
@@ -343,6 +352,10 @@ from repro_torch.kernels.mont_fold.kernel import COUNTER as K2, mont_fold_cuda  
 from repro_torch.kernels.mont_fold.kernel import grid_blocks as k2_grid_blocks  # noqa: E402
 from repro_torch.kernels.mont_fold.ops import mont_fold          # noqa: E402
 from repro_torch.kernels.mont_fold.ref import mont_fold_ref      # noqa: E402
+from repro_torch.kernels.rns_redc.kernel import COUNTER as REDC, rns_redc_cuda  # noqa: E402
+from repro_torch.kernels.rns_redc.kernel import grid_blocks as redc_grid_blocks  # noqa: E402
+from repro_torch.kernels.rns_redc.ops import rns_redc            # noqa: E402
+from repro_torch.kernels.rns_redc.ref import edge_residues, rns_redc_ref  # noqa: E402
 from repro_torch.launch import dryrun as DRY                   # noqa: E402
 from repro_torch.launch import graph_cost as GC                 # noqa: E402
 from repro_torch.launch import mesh as MESH                     # noqa: E402
@@ -560,6 +573,8 @@ K3_SHAPES = [(8, 513, 256, 5, Q), (8, 255, 256, 5, Q), (128, 513, 256, 5, Q),
              (8, 300, 33, 5, Q), (1, 513, 256, 5, Q), (129, 513, 256, 7, BN_M),
              (8, 513, 256, 1, Q), (16, 256, 96, 2, Q), (8, 513, 64, 3, Q),
              (8, 300, 128, 4, BN_M), (8, 513, 256, 6, 2**31 - 1)]
+REDC_SHAPES = [(8, 64, 18), (8, 128, 18), (8, 256, 18), (8, 512, 18),
+               (128, 512, 18), (8, 256, 9)]
 K3_INT32_ONLY = [(128, 768, 256, 5, Q), (8, 6144, 2048, 5, Q),
                  (8, 6145, 256, 5, Q), (5, 4100, 96, 8, (1 << 31) - 99)]
 K3_TIMED = [(128, 768, 256, 5, Q, "int32_native"),
@@ -687,7 +702,8 @@ def phase_env(dev):
            "library": build.library_path().name,
            "k1_resources": _k1_resources(),
            "k2_resources": _k2_resources(),
-           "k3_resources": _k3_resources()}
+           "k3_resources": _k3_resources(),
+           "redc_resources": _redc_resources()}
     emit(env)
     return env
 
@@ -732,6 +748,21 @@ def _k3_resources() -> list:
                      "bulk" if m[3] == "1" else "bytes", r["registers"],
                      r["spill_stores"], r["spill_loads"], r["smem"]])
     check(len(rows) == 32, f"{len(rows)} K3 instances in the ptxas report")
+    return sorted(rows)
+
+
+def _redc_resources() -> list:
+    """[channels, form, registers, spill store and load bytes, static
+    shared memory] of every rns_redc instance, from the build's ptxas
+    report."""
+    rows = []
+    for r in build.ptxas_report("rns_redc_kernel"):
+        m = re.search(r"rns_redc_kernelILi(\d+)ELb([01])E", r["kernel"])
+        check(m is not None, f"unexpected rns_redc instance {r['kernel']}")
+        rows.append([int(m[1]) + 1, "words" if m[2] == "1" else "digits",
+                     r["registers"], r["spill_stores"], r["spill_loads"],
+                     r["smem"]])
+    check(len(rows) == 4, f"{len(rows)} rns_redc instances in the ptxas report")
     return sorted(rows)
 
 
@@ -901,6 +932,65 @@ def k2_timings(dev, card: str, rng) -> dict:
                                  else t["kernel_device_ms"] / empty_ms
                                  for t in rows]}
     return {"mont_fold": rows, "empty_launch": floor}
+
+
+def phase_redc(dev, card: str) -> dict:
+    """``rns_redc`` against its plain version (``rns_to_field``, and its
+    digits packed to words) on the card, bit for bit, in both forms, at
+    REDC_SHAPES, one launch a call; then, in the words form the served
+    path uses, its time (CUDA events, median of 50 runs of 20 calls) and
+    device time (profiler) beside its grid, its bound (bytes read and
+    written; operations: its digit products and REDC multiply-adds on the
+    CUDA cores), the digits form's time and the plain version's, op by op
+    and replayed as one captured graph (the served path's form before the
+    kernel); the launch floor (the empty kernel's device time)."""
+    rng = np.random.default_rng(SEED + 5)
+    rows, err = [], 0
+    for shape in REDC_SHAPES:
+        chain = R.make_chain(shape[-1])
+        x = edge_residues(shape, rng).to(dev)
+        for form in ("digits", "words"):
+            REDC.reset()
+            got = rns_redc(x, chain, form=form)
+            torch.cuda.synchronize(dev)
+            check(REDC.launches == 1, f"rns_redc {shape} {form}: "
+                  f"{REDC.launches} launches")
+            want = rns_redc_ref(x, chain, form)
+            check(got.shape == want.shape, f"rns_redc {shape} {form}: shape "
+                  f"{tuple(got.shape)}, its plain version {tuple(want.shape)}")
+            err = max(err, int((got - want).abs().max()))
+            check(err == 0,
+                  f"rns_redc {shape} {form} differs from its plain version")
+        n_el = shape[0] * shape[1]
+        n = shape[-1] - 1
+        nbytes = n_el * 8 * (shape[-1] + chain.n_words)
+        ops = n_el * (3 * 25 * (n + 1) + 23 * 27)
+        bound, by = GC.bound_s(GC.cost(nbytes, 0, ops), card)
+
+        def words():
+            return rns_redc_cuda(x, chain, True)
+
+        plain_graph, _ = capture(lambda: rns_redc_ref(x, chain, "words"), 1)
+        rows.append({
+            "shape": list(shape), "form": "words",
+            "blocks": redc_grid_blocks(n_el),
+            "kernel_ms": median_ms(words, dev),
+            "kernel_device_ms": device_ms(words, "rns_redc_kernel", dev),
+            "digits_ms": median_ms(lambda: rns_redc_cuda(x, chain, False),
+                                   dev),
+            "plain_ms": median_ms(lambda: rns_redc_ref(x, chain, "words"),
+                                  dev, runs=5, per_run=2, warmup=1),
+            "plain_graph_ms": graph_spans({"plain": plain_graph}, dev,
+                                          passes=1, runs=20)["plain"],
+            "library_ms": None,   # no single torch call computes it
+            "bound_ms": bound * 1e3, "bound_by": by})
+        del plain_graph
+    empty_ms = device_ms(build.empty_call(dev), "empty_kernel", dev)
+    out = {"phase": "redc", "exact": True, "max_abs_err": err,
+           "rns_redc": rows,
+           "empty_launch_device_ms": empty_ms}
+    emit(out)
+    return out
 
 
 def capture(fn, passes=PASSES):
@@ -1484,8 +1574,14 @@ def _replay(cos, **kw):
 
 
 def _reset_counters():
-    for counter in (K1, K2, K3):
+    for counter in (K1, K2, K3, REDC):
         counter.reset()
+
+
+def _redc_per_run(eng) -> int:
+    """``rns_redc`` launches one e2e of ``eng`` makes: one for a BN254
+    engine (its reduction to F_p), none for Dilithium."""
+    return int(isinstance(eng, WK.BN254Engine))
 
 
 def _census(cos, runs: dict, captures_before: dict, probes: int = 0) -> dict:
@@ -1504,16 +1600,19 @@ def _census(cos, runs: dict, captures_before: dict, probes: int = 0) -> dict:
 
 def _program_census(cos, label: str) -> int:
     """Every captured program's recorded K1/K2 calls and launches equal its
-    engine's fold profile, and it made no K3 call; returns the programs."""
+    engine's fold profile, it made no K3 call, and a BN254 program one
+    ``rns_redc`` call (a Dilithium program none); returns the programs."""
     n = 0
     for key in cos.trace_counts:
         for shape, prog in cos.jitted_for(*key).items():
-            want = expected_kernel_calls(prog.eng)
-            got = [(prog.calls[k], prog.launches[k])
-                   for k in ("limb_matmul", "mont_fold", "fused_ntt_tile")]
-            check(got == [(want[0], want[0]), (want[1], want[1]), (0, 0)],
+            k1, k2 = expected_kernel_calls(prog.eng)
+            redc = _redc_per_run(prog.eng)
+            want = [(k1, k1), (k2, k2), (0, 0), (redc, redc)]
+            got = [(prog.calls[k], prog.launches[k]) for k in
+                   ("limb_matmul", "mont_fold", "fused_ntt_tile", "rns_redc")]
+            check(got == want,
                   f"{label}: program {key} {shape} recorded {got}, the fold "
-                  f"profile says {want}")
+                  f"profile and the reduction say {want}")
             n += 1
     return n
 
@@ -1664,8 +1763,9 @@ def _host_timers(spent: dict):
 
 def _profiled_replay(cos, dev, tries=3) -> tuple:
     """One warm replay under torch.profiler with the counters at 0: the
-    profile, its wall time, and the census by profiler (K1/K2 kernel events
-    equal to the counters' launches).  The profiler now and then drops
+    profile, its wall time, and the census by profiler (K1/K2 and
+    ``rns_redc`` kernel events equal to the counters' launches, and
+    ``rns_redc`` launched at least once: the paper trace serves BN254).  The profiler now and then drops
     events; a replay whose events fall short is profiled again, up to
     ``tries`` in all, and the last mismatch raises."""
     from torch.profiler import ProfilerActivity, profile
@@ -1679,13 +1779,15 @@ def _profiled_replay(cos, dev, tries=3) -> tuple:
             wall = time.perf_counter() - t0
         events = {name: sum(ev.count for ev in _kernel_events(prof)
                             if f"{name}_kernel" in ev.key)
-                  for name in ("limb_matmul", "mont_fold")}
-        counted = {"limb_matmul": K1.launches, "mont_fold": K2.launches}
-        if events == counted:
+                  for name in ("limb_matmul", "mont_fold", "rns_redc")}
+        counted = {"limb_matmul": K1.launches, "mont_fold": K2.launches,
+                   "rns_redc": REDC.launches}
+        if events == counted and counted["rns_redc"]:
             return prof, wall, {"events": events, "counters": counted,
                                 "tries": attempt + 1}
-    raise AssertionError(f"profiler census: K1/K2 kernel events {events} != "
-                         f"launches counted {counted}")
+    raise AssertionError(f"profiler census: K1/K2/rns_redc kernel events "
+                         f"{events} != launches counted {counted} (or no "
+                         f"rns_redc launch)")
 
 
 def phase_profile(dev):
@@ -1709,7 +1811,7 @@ def phase_profile(dev):
         torch.cuda.synchronize(dev)
     check(cos.trace_counts == captures, "the warm replay captured a program")
     prof, wall_profiled, census = _profiled_replay(cos, dev)
-    device = {"limb_matmul": 0.0, "mont_fold": 0.0}
+    device = {"limb_matmul": 0.0, "mont_fold": 0.0, "rns_redc": 0.0}
     busy_us, n_kernels, top = 0.0, 0, []
     for ev in _kernel_events(prof):
         busy_us += ev.self_device_time_total
@@ -3871,6 +3973,10 @@ def main():
         emit({"phase": "k3_checks", **k3_checks(dev, rng)})
         emit({"phase": "k3_timings", "fused_ntt_tile": k3_timings(dev, env["device"], rng)})
         return
+    if sys.argv[1:] == ["--redc"]:
+        # a short call: the build, rns_redc's checks and times
+        phase_redc(dev, env["device"])
+        return
     if sys.argv[1:] == ["--validator"]:
         # a short call: the build and the validator phase
         phase_validator(dev)
@@ -3924,15 +4030,16 @@ def main():
         phase_train(dev, env, remat_ms="--remat-ms" in sys.argv)
         return
     kern = phase_kernels(dev, env["device"])
+    redc = phase_redc(dev, env["device"])
     phase_engines(dev)
     phase_variants(dev, env)
     fused = phase_fused(dev, env["device"])
     _, paper_rows = phase_slice(dev, "paper")
     _, mixed_rows = phase_slice(dev, "mixed_eager_lazy", d_uniform=256,
                                 **MIXED)
-    # the kernels line's K1/K2 launches: the kernel events the profiler saw
-    # in a warm paper replay, the counters set to 0 just before it (and
-    # equal to them)
+    # the kernels line's K1/K2 and rns_redc launches: the kernel events the
+    # profiler saw in a warm paper replay, the counters set to 0 just before
+    # it (and equal to them)
     launched = phase_profile(dev)["census_by_profiler"]["events"]
     phase_validator(dev)
     phase_online(dev, env, {"paper": paper_rows, "mixed": mixed_rows})
@@ -3965,6 +4072,17 @@ def main():
                      "bound_ms": timed["bound_ms"],
                      "bound_by": timed["bound_by"],
                      "library_ms": timed["library_ms"]})
+    timed = redc["rns_redc"][3]        # (8, 512, 18), the served words
+    rows.append({"name": "rns_redc", "route": "cuda",
+                 "source": "src/repro_torch/csrc/rns_redc.cu",
+                 "replaces": "none: jnp in src/repro/core/rns.py:rns_to_field",
+                 "launches": launched["rns_redc"],
+                 "max_abs_err": redc["max_abs_err"],
+                 "ms": timed["kernel_ms"],
+                 "device_ms": timed["kernel_device_ms"],
+                 "plain_ms": timed["plain_ms"],
+                 "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                 "library_ms": None})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

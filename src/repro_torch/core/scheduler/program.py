@@ -3,12 +3,12 @@ compiled ``jax.jit(eng.e2e)``.
 
 An :class:`E2EProgram` is one engine's whole served e2e (``eng.serve``:
 every staging pass's K1 GEMM and K2 fold on every channel, and for BN254 the
-``rns_to_field`` reduction; for ``bn254_full`` also the words of its field
-elements turned into residues before and the result's digits packed into
-words after) at one operand shape.  It owns a static int32 input on the
-engine's device, the engine's twiddle planes (uploaded once, by the engine)
-and a static int32 output.  Both hold uint32 bits: residues below 2**31, or
-the full 32-bit words of a field element.
+reduction to F_p, the ``rns_redc`` kernel; for ``bn254_full`` also the words
+of its field elements turned into residues before, and the kernel writes
+the result's words) at one operand shape.  It owns a static int32 input on
+the engine's device, the engine's twiddle planes (uploaded once, by the
+engine) and a static int32 output.  Both hold uint32 bits: residues below
+2**31, or the full 32-bit words of a field element.
 
 * On CUDA the e2e runs once on the pool's side stream (the warm-up, which
   also yields the output's shape) and is then captured into the pool's
@@ -77,9 +77,11 @@ from repro_torch.kernels import graph_census
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2
+from repro_torch.kernels.rns_redc.kernel import COUNTER as REDC
 
 # kernel name -> its wrapper's counter
-COUNTERS = {"limb_matmul": K1, "mont_fold": K2, "fused_ntt_tile": K3}
+COUNTERS = {"limb_matmul": K1, "mont_fold": K2, "fused_ntt_tile": K3,
+            "rns_redc": REDC}
 
 
 def _counts() -> dict:
@@ -106,7 +108,7 @@ STAGES = ("ingest", "channels", "reduce", "pack")
 
 
 class StageOps(TorchDispatchMode):
-    """The non-view ATen ops run inside the block, outside the K1/K2/K3
+    """The non-view ATen ops run inside the block, outside the kernel
     wrappers (whose work is the kernels), counted by stage: ``ingest``,
     ``reduce`` and ``pack`` by the scope path (:data:`STAGE_SCOPES`), every
     other op (the channels' limb splits, recombinations and stacking) in

@@ -21,7 +21,7 @@ refused, since its call order is not the card's completion order.
       eager program the K1/K2 nodes run (K1^g K2) per staging pass: every
       pass's GEMMs, then its fold, which depends on them, before the next
       pass's GEMMs.  Nodes under ``vpu_montgomery`` and kernels that are
-      not K1/K2 (PyTorch's ``addmod``, ``rns_to_field``) are no summation
+      not K1/K2 (PyTorch's ``addmod``, the ``rns_redc`` reduction) are no summation
       window, as the JAX V1 skips the Montgomery matmuls.
   V2 (barrier survival): each pass's first GEMM is reachable from the
       previous pass's fold through full edges.  A programmatic edge orders

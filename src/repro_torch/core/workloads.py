@@ -16,10 +16,11 @@ back into words on the device (``BN254Engine.e2e_words``).
 
 An engine lives on one device (CUDA unless ``device="cpu"``) and takes and
 returns tensors there.  Its transform runs every staging-pass GEMM through
-the ``limb_matmul`` kernel and every fold through ``mont_fold``; on the CPU
-the kernel wrappers run their plain versions.  A plan or chain computed
-elsewhere (e.g. carried from the JAX package with
-:mod:`repro_torch.core.convert`) can be passed in instead of being rebuilt.
+the ``limb_matmul`` kernel and every fold through ``mont_fold``, and BN254's
+reduction to F_p through ``rns_redc``; on the CPU the kernel wrappers run
+their plain versions.  A plan or chain computed elsewhere (e.g. carried
+from the JAX package with :mod:`repro_torch.core.convert`) can be passed in
+instead of being rebuilt.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.core import ntt as NTT
 from repro_torch.core import rns as R
 from repro_torch.core import zones as Z
 from repro_torch.device import resolve_device
+from repro_torch.kernels.rns_redc.ops import rns_redc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,11 +266,15 @@ class BN254Engine:
                 self.last_stats = st
             return torch.stack(outs, dim=-1)
 
-    def reduce(self, y_res: torch.Tensor) -> torch.Tensor:
-        """(N, d, C) transformed residues -> (N, d, nred) int64 field digits."""
+    def reduce(self, y_res: torch.Tensor, *, form: str = "digits"
+               ) -> torch.Tensor:
+        """(N, d, C) int64 transformed residues -> (N, d, nred) int64 field
+        digits, or with ``form="words"`` (N, d, n_words) int64 words (each
+        < 2**32) of the canonical element: ``rns_to_field`` in one kernel
+        (``rns_redc``; its plain version on the CPU)."""
         dev = self.device
         with Z.workload_zone("bn254", dev), Z.scope("vpu_montgomery", dev):
-            return R.rns_to_field(y_res, self.chain)
+            return rns_redc(y_res, self.chain, form=form)
 
     def e2e(self, a_res, *, kernel_fn=None, fold_fn=None, planes=None):
         """The paper's BN254 op for N stacked tenant rows."""
@@ -285,7 +291,9 @@ class BN254Engine:
 
     def pack_words(self, digits: torch.Tensor) -> torch.Tensor:
         """(N, d, nred) field digits -> (N, d, n_words) int64 words (each
-        < 2**32) of the canonical element; the digits' top word is 0."""
+        < 2**32) of the canonical element; the digits' top word is 0.  For a
+        caller that holds digits: the served path has the reduction write
+        the words (``reduce(..., form="words")``)."""
         dev = self.device
         with Z.workload_zone("bn254", dev), Z.scope("bn254_pack", dev):
             return MG.digits_to_words_u32(digits)[..., :self.chain.n_words]
@@ -293,10 +301,11 @@ class BN254Engine:
     def e2e_words(self, words, *, kernel_fn=None, fold_fn=None, planes=None):
         """The served ``bn254_full`` op: (N, d, n_words) words of field
         elements -> (N, d, n_words) words of y mod p, every step on the
-        engine's device."""
-        return self.pack_words(self.e2e(self.ingest_words(words),
-                                        kernel_fn=kernel_fn, fold_fn=fold_fn,
-                                        planes=planes))
+        engine's device: ingest, the channels, and the reduction, which
+        writes the words."""
+        y = self.evaluate(self.ingest_words(words), kernel_fn=kernel_fn,
+                          fold_fn=fold_fn, planes=planes)
+        return self.reduce(y, form="words")
 
     def serve(self, operand, *, kernel_fn=None, fold_fn=None, planes=None):
         """The e2e of the class's served request form (``request``)."""

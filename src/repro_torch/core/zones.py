@@ -19,8 +19,8 @@ keeps the path itself:
   CPU as on the card, and every scope opened adds its name to the log (a
   fake tensor, as a plan over a mesh runs, has no address: its ranges
   start at None);
-* :data:`KERNEL_CALL` marks the body of a K1/K2/K3 wrapper
-  (``with KERNEL_CALL:``), so that a walk over the ATen ops a function runs
+* :data:`KERNEL_CALL` marks the body of a kernel wrapper (K1/K2/K3,
+  ``rns_redc``; ``with KERNEL_CALL:``), so that a walk over the ATen ops a function runs
   (:func:`repro_torch.launch.graph_cost.op_census`) can leave out what a
   wrapper runs: its plain version on the CPU, its output's allocation on
   the card.
@@ -85,7 +85,7 @@ def tenant_zone(tenant_id: int, device=None):
 
 
 class _KernelCall:
-    """Re-entrant marker of a K1/K2/K3 wrapper's body on this thread."""
+    """Re-entrant marker of a kernel wrapper's body on this thread."""
 
     def __enter__(self):
         _local.kernel_depth = getattr(_local, "kernel_depth", 0) + 1
@@ -98,7 +98,7 @@ KERNEL_CALL = _KernelCall()
 
 
 def in_kernel_call() -> bool:
-    """True inside the body of a K1/K2/K3 wrapper on this thread."""
+    """True inside the body of a kernel wrapper on this thread."""
     return getattr(_local, "kernel_depth", 0) > 0
 
 

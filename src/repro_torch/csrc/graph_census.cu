@@ -10,7 +10,8 @@
 // * every node, in a topological order of the graph's edges (Kahn's
 //   algorithm, ties taken in the order cudaGraphGetNodes gives): its node
 //   type and, for a kernel node, which of this library's kernel instances it
-//   launches (instances.cuh), or 0 for any other kernel (PyTorch's).  For
+//   launches (instances.cuh), or 0 for any other kernel (PyTorch's, and
+//   rns_redc, which no check keys on).  For
 //   K1/K2/K3 it also returns the accumulator, n_diag, the shape arguments
 //   (K1: n, k, m; K2: n_out; K3: n, k, d), the modulus (K2, K3: the first
 //   field of FoldConsts), the grid's blocks and the operand pointers, read

@@ -6,6 +6,9 @@
   (``csrc/mont_fold.cu``).
 * ``fused_ntt_tile`` (K3) — K1's GEMM with K2's fold as its epilogue, so the
   diagonals never reach device memory (``csrc/fused_ntt_tile.cu``).
+* ``rns_redc`` — BN254's residues to the canonical element of F_p (the
+  Shenoy–Kumaresan base extension and the digit-12 Montgomery reduction),
+  its digits or its words written by the epilogue (``csrc/rns_redc.cu``).
 
 Each wrapper launches its kernel on a CUDA tensor and runs the plain PyTorch
 version on a CPU tensor.  :func:`repro_torch.core.limb_gemm.staged_transform`
@@ -25,9 +28,11 @@ from repro_torch.core import limbs as L
 from repro_torch.kernels.fused_ntt_tile.ops import fused_ntt_tile
 from repro_torch.kernels.limb_matmul.ops import limb_matmul
 from repro_torch.kernels.mont_fold.ops import mont_fold, mont_fold_window_fn
+from repro_torch.kernels.rns_redc.ops import rns_redc
 
 __all__ = ["fused_ntt_tile", "fused_operand_3d", "fused_transform",
-           "limb_matmul", "mont_fold", "mont_fold_window_fn", "tile_fn"]
+           "limb_matmul", "mont_fold", "mont_fold_window_fn", "rns_redc",
+           "tile_fn"]
 
 
 def tile_fn():

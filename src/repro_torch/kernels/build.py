@@ -36,8 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu", "empty.cu",
-           "graph_census.cu")
+SOURCES = ("limb_matmul.cu", "mont_fold.cu", "fused_ntt_tile.cu", "rns_redc.cu",
+           "empty.cu", "graph_census.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # Compile-only flags: each kernel's registers, spills and shared memory go
@@ -54,6 +54,8 @@ _PROTOTYPES = {
     "mont_fold_blocks": (_I,),
     "fused_ntt_tile_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "fused_ntt_tile_grid": (_I, _I, _I, _I, _P, _I, _P),
+    "rns_redc_launch": (_P, _P, _I, _I, _I, _P, _I, _I, _P),
+    "rns_redc_blocks": (_I,),
     "empty_launch": (_I, _P),
     "graph_census_size": (_P, _P),
     "graph_census_read": (_P, _I, _I, _P, _P, _P, _P, _I),

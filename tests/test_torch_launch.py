@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.rns import make_chain
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_ntt_tile import kernel as k3
 from repro_torch.kernels.limb_matmul import kernel as k1
 from repro_torch.kernels.mont_fold import kernel as k2
+from repro_torch.kernels.rns_redc import kernel as kr
 
 _C_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
 
@@ -125,11 +127,14 @@ _A = torch.from_numpy(_RNG.integers(0, 256, (3, 20), dtype=np.uint8))
 _B = torch.from_numpy(_RNG.integers(-128, 128, (20, 10)).astype(np.int8))
 _B3 = _B.view(20, 2, 5)
 _D = torch.zeros((3, 4, 5), dtype=torch.int32)
+_R = torch.zeros((3, 4, 18), dtype=torch.int64)
+_CHAIN = make_chain(18)
 _WRAPPERS = {
     "limb_matmul_launch": (k1, lambda: k1.limb_matmul_cuda(_A, _B, "int32_native")),
     "mont_fold_launch": (k2, lambda: k2.mont_fold_cuda(_D, 17)),
     "fused_ntt_tile_launch": (k3, lambda: k3.fused_ntt_tile_cuda(
         _A, _B3, 17, "fp32_mantissa")),
+    "rns_redc_launch": (kr, lambda: kr.rns_redc_cuda(_R, _CHAIN, True)),
 }
 
 
@@ -183,6 +188,7 @@ _OPERANDS = {
     "mont_fold_launch": ((_D,), lambda d: k2.mont_fold_cuda(d, 17)),
     "fused_ntt_tile_launch": ((_A, _B3), lambda a, b3: k3.fused_ntt_tile_cuda(
         a, b3, 17, "fp32_mantissa")),
+    "rns_redc_launch": ((_R,), lambda r: kr.rns_redc_cuda(r, _CHAIN, False)),
 }
 
 

@@ -217,7 +217,8 @@ def test_a_replay_adds_the_captured_counts():
     cos = TCOS.SliceCoScheduler(device="cpu")
     prog = cos.program_for("dilithium", 256, (2, 256))
     prog.graph = types.SimpleNamespace(replay=lambda: None)
-    prog.launches = {"limb_matmul": 5, "mont_fold": 7, "fused_ntt_tile": 0}
+    prog.launches = dict.fromkeys(P.COUNTERS, 0) | {"limb_matmul": 5,
+                                                    "mont_fold": 7}
     before = {k: (c.calls, c.launches) for k, c in P.COUNTERS.items()}
     for _ in range(4):
         prog.replay()
