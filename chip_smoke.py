@@ -341,7 +341,7 @@ from repro_torch.core.scheduler import (IngressQueue, PoissonTrace,  # noqa: E40
                                         RectangularScheduler, TenantRequest)
 from repro_torch.cluster import ClusterConfig, ClusterServer    # noqa: E402
 from repro_torch.configs import ARCHS as LM_ARCHS, get_config, smoke_config, torch_dtype  # noqa: E402
-from repro_torch.core.scheduler.program import E2EProgram, GraphProbe, capture_pool, host_operand  # noqa: E402
+from repro_torch.core.scheduler.program import E2EProgram, GraphProbe, capture_pool  # noqa: E402
 from repro_torch.kernels import build, fused_transform          # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.kernel import COUNTER as K3, fused_ntt_tile_cuda, launch_grid  # noqa: E402
 from repro_torch.kernels.fused_ntt_tile.ref import fused_ntt_tile_ref  # noqa: E402
@@ -1853,12 +1853,19 @@ def _kernels_per_call(fn, dev) -> int:
     return sum(ev.count for ev in _kernel_events(prof))
 
 
+class _Holder:
+    """What holds a program's launch slot outside the co-scheduler."""
+
+
 def _program_vs_eager(cos, dev) -> list:
     """One BN254 (d = 64) and one Dilithium (d = 256, two passes) dispatch
-    of 8 rows: the program's run (the H2D copy and one graph replay)
-    against the same ``eng.e2e`` called op by op on the program's static
-    input, timed in turns (CUDA events, median of 20 runs of 5 calls), the
-    outputs equal, with the device events each makes per call."""
+    of 8 rows: the program's served launch on one held slot (one graph
+    replay with the H2D copy, the e2e and the D2H copy inside, then the
+    wait on the slot's event) against the same two copies around
+    ``eng.serve`` called op by op on the program's static buffers, then a
+    wait on the stream; timed in turns (CUDA events, median of 20 runs of 5
+    calls), the outputs on the host equal, with the device events each
+    makes per call."""
     rng = np.random.default_rng(SEED + 2)
     rows = []
     for workload, d in (("bn254", 64), ("dilithium", 256)):
@@ -1870,25 +1877,37 @@ def _program_vs_eager(cos, dev) -> list:
                     % np.array(eng.chain.moduli, np.uint64)).astype(np.uint32)
         else:
             live = rng.integers(0, Q, shape, dtype=np.uint64).astype(np.uint32)
-        host, view = host_operand(shape, dev)
-        view[:] = live
-        got = prog.run(host).clone()
+        holder = _Holder()
+        slot = prog.acquire(holder)
+        slot.in_view[:] = live
+        eager_out = torch.empty_like(slot.host_out, pin_memory=True)
+
+        def program():
+            prog.launch(slot)
+            slot.wait()
 
         def eager():
-            return eng.e2e(prog.static_in, planes=prog.planes)
+            prog.static_in.copy_(slot.host_in, non_blocking=True)
+            prog.static_out.copy_(eng.serve(prog.static_in,
+                                            planes=prog.planes))
+            eager_out.copy_(prog.static_out, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
 
-        check(torch.equal(got, eager().to(torch.int32)),
+        program()
+        eager()
+        check(torch.equal(slot.host_out, eager_out),
               f"{workload} d={d}: the program's output differs from the "
               f"op-by-op e2e")
-        ms = median_ms_turns({"program": lambda: prog.run(host),
-                              "eager": eager}, dev, runs=20, per_run=5)
+        ms = median_ms_turns({"program": program, "eager": eager}, dev,
+                             runs=20, per_run=5)
         rows.append({"workload": workload, "d": d, "shape": list(shape),
                      "program_ms": ms["program"], "eager_ms": ms["eager"],
                      "eager_over_program": ms["eager"] / ms["program"],
                      "events_per_call": {
-                         "program": _kernels_per_call(lambda: prog.run(host), dev),
+                         "program": _kernels_per_call(program, dev),
                          "eager": _kernels_per_call(eager, dev)},
                      "capture_s": prog.capture_s, "equal": True})
+        slot.holder = None
     return rows
 
 
@@ -2480,9 +2499,7 @@ def _validator_class(dev, cos, cpu_cos, workload: str, d: int,
                 % np.array(eng.chain.moduli, np.uint64)).astype(np.uint32)
     else:
         live = rng.integers(0, Q, shape, dtype=np.uint64).astype(np.uint32)
-    host, view = host_operand(shape, dev)
-    view[:] = live
-    operand.copy_(host)
+    operand.copy_(torch.from_numpy(live.view(np.int32)))
     # The profiler now and then drops a window's kernel events (as in
     # _profiled_replay): a replay whose events differ from the nodes is
     # profiled again, up to three windows, and the last mismatch raises.

@@ -32,7 +32,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.core import limb_gemm as G
@@ -241,16 +240,10 @@ class SliceCoScheduler:
 
     def operand_shape(self, workload: str, d: int, n_c: int) -> tuple:
         """Device operand shape of one ``n_c``-live-row launch (ladder-padded
-        when a row ladder is configured), in the class's request form
-        (:data:`repro_torch.core.workloads.REQUEST_FORMS`)."""
-        rows = self.launch_rows(n_c)
-        form = WK.REQUEST_FORMS[workload]
-        if form == "word":
-            return (rows, d)
-        eng = self.engine_for(workload, d)
-        if form == "element":
-            return (rows, d, eng.chain.n_words)
-        return (rows, d, eng.n_channels)
+        when a row ladder is configured), in the class's request form (the
+        engine's ``operand_shape``)."""
+        return self.engine_for(workload, d).operand_shape(
+            self.launch_rows(n_c))
 
     def capture(self, workload: str, d: int, shape: tuple) -> E2EProgram:
         """A new program of ``(workload, d)`` at operand ``shape`` on the
@@ -336,17 +329,6 @@ class SliceCoScheduler:
             g.live_rows += b.n_c
         return groups
 
-    def _member_operand(self, batch: StackedBatch, eng) -> np.ndarray:
-        """A batch's operand in its class's request form: Dilithium (N, d)
-        words and ``bn254_full`` (N, d, 8) element words as they come (the
-        program turns words into residues on the device); ``bn254``
-        residues (N, d, C), or raw integers (N, d) ingested here."""
-        if WK.REQUEST_FORMS[batch.workload] == "residues" \
-                and batch.operand.ndim == 2:
-            from repro_torch.core import rns as R
-            return R.to_rns_np(batch.operand.astype(object), eng.chain)
-        return np.asarray(batch.operand, np.uint32)
-
     def _launch(self, group: _LaunchGroup):
         """Enqueue one launch group on its workload's device through a
         launch slot of its program, without waiting for it."""
@@ -366,7 +348,7 @@ class SliceCoScheduler:
         if tr is not None:
             tr.host_begin("sched.stage", group.lid)
         slot = prog.acquire(group)
-        merge_operands([self._member_operand(b, prog.eng)
+        merge_operands([prog.eng.launch_operand(b.operand)
                         for _, b, _, _ in group.members], out=slot.in_view)
         if tr is not None:
             tr.host_end("sched.stage", group.lid)

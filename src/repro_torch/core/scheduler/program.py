@@ -5,32 +5,26 @@ An :class:`E2EProgram` is one engine's whole served e2e (``eng.serve``:
 every staging pass's K1 GEMM and K2 fold on every channel, and for BN254 the
 reduction to F_p, the ``rns_redc`` kernel; for ``bn254_full`` also the words
 of its field elements turned into residues before, and the kernel writes
-the result's words) at one operand shape.  It owns a static int32 input on
-the engine's device, the engine's twiddle planes (uploaded once, by the
-engine) and a static int32 output.  Both hold uint32 bits: residues below
-2**31, or the full 32-bit words of a field element.
+the result's words) at one operand shape (``eng.operand_shape``).  It owns
+a static int32 input on the engine's device, the engine's twiddle planes
+(uploaded once, by the engine) and a static int32 output.  Both hold uint32
+bits: residues below 2**31, or the full 32-bit words of a field element.
 
-* On CUDA the e2e runs once on the pool's side stream (the warm-up, which
-  also yields the output's shape) and is then captured into the pool's
-  memory.  A failed capture, or a kernel that fails to launch inside it,
-  raises; there is no eager path on the card.
-* On the CPU (the tests) the same object runs ``e2e`` eagerly on the same
-  static buffers, so the buffer discipline is the same on both devices: the
-  static output is overwritten by the program's next run, and a caller that
-  keeps it instead of copying it out sees the next flight's rows.
-
-The co-scheduler launches a program through its launch slots
-(:class:`LaunchSlot`), made with the program and kept for its life: a
-pinned host input and output and one event each, and on CUDA one graph
-each that copies the slot's input into the static input, runs the e2e and
-copies the static output into the slot's output.  A launch is one replay of
-that graph and the record of the slot's event on the program's stream; the
-CPU runs the same copies around an eager e2e.  A slot is held by its launch
-group until the gather has copied the rows out; a program adds a slot (one
-more capture) only when every slot it has is held.  :meth:`E2EProgram.run`
-(:meth:`~E2EProgram.load` then :meth:`~E2EProgram.replay`) and
-:meth:`~E2EProgram.copy_out` run the e2e alone on caller-made host
-buffers; on CUDA their graph is captured at the first replay.
+A program is its launch slots (:class:`LaunchSlot`), made with the program
+and kept for its life: a pinned host input and output and one event each,
+and on CUDA one graph each that copies the slot's input into the static
+input, runs the e2e and copies the static output into the slot's output.
+A launch is one replay of that graph and the record of the slot's event on
+the program's stream.  On CUDA the e2e runs once on the pool's side stream
+first (the warm-up, which also yields the output's shape); a failed
+capture, or a kernel that fails to launch inside it, raises, and there is
+no eager path on the card.  On the CPU (the tests) the slot's copies run
+around an eager e2e on the same static buffers.  A caller acquires a slot
+(:meth:`E2EProgram.acquire`), writes its operand into the slot's
+``in_view``, launches (:meth:`E2EProgram.launch`), waits on the slot and
+reads ``out_view``.  A slot is held until its holder sets it free, so no
+later launch writes a slot whose rows are still wanted; a program adds a
+slot (one more capture) only when every slot it has is held.
 
 The warm-up (CUDA) or the first run (CPU) also runs under a
 :class:`StageOps` census: the ATen ops of one run by stage, kept as
@@ -53,14 +47,14 @@ programs are captured without either.
 
 Every program of one device, whichever co-scheduler made it, shares the
 process's one graph memory pool and one side stream for that device
-(:func:`capture_pool`); each program owns its graph, which goes with it.
-The programs replay on one stream in dispatch order, so the pool's
+(:func:`capture_pool`); each program owns its slots' graphs, which go with
+it.  The programs replay on one stream in dispatch order, so the pool's
 intermediates are never live in two replays at once; the same holds for a
-program's several graphs (its slots' and its own).  The static input and
-output and the slots' host buffers lie outside the pool, so another
-program's replay never writes them.  One side stream per device also keeps
-the warm-ups' cached blocks in one place: a stream per co-scheduler would
-strand its cache when the co-scheduler goes.
+program's several slots.  The static input and output and the slots' host
+buffers lie outside the pool, so another program's replay never writes
+them.  One side stream per device also keeps the warm-ups' cached blocks in
+one place: a stream per co-scheduler would strand its cache when the
+co-scheduler goes.
 """
 from __future__ import annotations
 
@@ -102,15 +96,14 @@ def _restore(counts: dict):
 
 # the scopes that mark the stages of a served e2e other than the channels'
 # transforms, and each stage's name
-STAGE_SCOPES = (("bn254_ingest", "ingest"), ("vpu_montgomery", "reduce"),
-                ("bn254_pack", "pack"))
-STAGES = ("ingest", "channels", "reduce", "pack")
+STAGE_SCOPES = (("bn254_ingest", "ingest"), ("vpu_montgomery", "reduce"))
+STAGES = ("ingest", "channels", "reduce")
 
 
 class StageOps(TorchDispatchMode):
     """The non-view ATen ops run inside the block, outside the kernel
-    wrappers (whose work is the kernels), counted by stage: ``ingest``,
-    ``reduce`` and ``pack`` by the scope path (:data:`STAGE_SCOPES`), every
+    wrappers (whose work is the kernels), counted by stage: ``ingest``
+    and ``reduce`` by the scope path (:data:`STAGE_SCOPES`), every
     other op (the channels' limb splits, recombinations and stacking) in
     ``channels``.  Each is one device kernel or copy of a run on the card,
     or an allocation."""
@@ -273,9 +266,9 @@ class LaunchSlot:
     input in, runs the e2e and copies the output back (``graph`` and
     ``event`` are None on the CPU).
 
-    ``holder`` is a weak reference to the launch group that holds the slot,
-    None while it is free: a slot whose holder is gone was dropped without
-    a gather and is free again.  ``pending`` is True from a launch until the
+    ``holder`` is a weak reference to what holds the slot (the
+    co-scheduler's launch group), None while it is free: a slot whose
+    holder is gone was dropped without a gather and is free again.  ``pending`` is True from a launch until the
     host has waited on its event."""
 
     __slots__ = ("host_in", "in_view", "host_out", "out_view", "event",
@@ -289,8 +282,7 @@ class LaunchSlot:
                                     pin_memory=cuda)
         self.out_view = self.host_out.numpy().view(np.uint32)
         self.event = torch.cuda.Event() if cuda else None
-        self.graph = None
-        self.holder = None
+        self.holder = self.graph = None
         self.pending = False
 
     def held_by(self, holder) -> bool:
@@ -307,9 +299,8 @@ class LaunchSlot:
 class E2EProgram:
     """``eng.serve`` at one operand shape, with static input and output.
 
-    ``shape`` is the launched operand's, ``(rows, d)`` for Dilithium,
-    ``(rows, d, channels)`` for ``bn254`` and ``(rows, d, 8)`` for
-    ``bn254_full``; ``planes`` the engine's device planes.  ``capture_s`` is
+    ``shape`` is the launched operand's (``eng.operand_shape``);
+    ``planes`` the engine's device planes.  ``capture_s`` is
     the host time the construction took (on CUDA the warm-up and the first
     slot's capture) and each added slot's capture.  ``slots`` holds the
     launch slots, ``slot_grows`` the number added after the first.
@@ -326,7 +317,6 @@ class E2EProgram:
         self.cuda = self.device.type == "cuda"
         self.static_in = torch.zeros(self.shape, dtype=torch.int32,
                                      device=self.device)
-        self.graph = None           # load/replay's graph, at first replay
         self.slot_grows = 0
         if self.cuda:
             self.stream = torch.cuda.current_stream(self.device)
@@ -416,55 +406,3 @@ class E2EProgram:
         for name, c in COUNTERS.items():
             c.calls += self.calls[name]
             c.launches += self.launches[name]
-
-    def load(self, host_operand: torch.Tensor):
-        """Copy ``host_operand`` (int32, the program's shape; pinned on
-        CUDA) into the static input on the current stream."""
-        if tuple(host_operand.shape) != self.shape:
-            raise ValueError(f"operand of shape {tuple(host_operand.shape)} "
-                             f"for a program of shape {self.shape}")
-        self.static_in.copy_(host_operand, non_blocking=True)
-
-    def replay(self) -> torch.Tensor:
-        """Run the program on the static input: one graph launch on the
-        current stream (CUDA; the graph is captured at the first call), or
-        ``e2e`` (CPU).  Returns the static output, which the next run
-        overwrites."""
-        if self.graph is None and self.cuda:
-            self.graph = self._record(
-                lambda: self.static_out.copy_(self._e2e()))
-        if self.graph is None:
-            self.static_out.copy_(self._e2e())
-        else:
-            self.graph.replay()
-            self._count_replay()
-        return self.static_out
-
-    def run(self, host_operand: torch.Tensor) -> torch.Tensor:
-        """:meth:`load` then :meth:`replay`."""
-        self.load(host_operand)
-        return self.replay()
-
-    def copy_out(self):
-        """Start the copy of the static output to a fresh host buffer and
-        return ``(host tensor, event)``.  On CUDA the copy is enqueued on
-        the current stream, so before any later replay there, into pinned
-        memory; the event marks it done.  On the CPU the copy is made at
-        once and the event is None."""
-        if not self.cuda:
-            return self.static_out.clone(), None
-        host = torch.empty(self.static_out.shape, dtype=torch.int32,
-                           pin_memory=True)
-        host.copy_(self.static_out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return host, event
-
-
-def host_operand(shape: tuple, device: torch.device) -> tuple:
-    """A fresh int32 host buffer for one launch's operand (pinned when the
-    program runs on CUDA) and its uint32 numpy view to write residues into
-    (residues < 2**31: the bits are the same)."""
-    t = torch.empty(shape, dtype=torch.int32,
-                    pin_memory=device.type == "cuda")
-    return t, t.numpy().view(np.uint32)

@@ -7,12 +7,15 @@
   reduction (paper §6.2).  ``n_channels=18`` selects the extended
   full-exactness chain (``bn254_full``).
 
-Each class's requests take one form on the served path
-(:data:`REQUEST_FORMS`), and :meth:`serve` is the e2e that takes it: a
-Dilithium row is one uint32 word a coefficient; a ``bn254`` row is residues
-over its 9 channels (the JAX package's form); a ``bn254_full`` row is field
-elements of F_r as 8 little-endian uint32 words, turned into residues and
-back into words on the device (``BN254Engine.e2e_words``).
+Each class's requests take one form on the served path, which its engine
+owns: ``operand_shape`` gives a launch's operand shape, ``launch_operand``
+turns a stacked batch's host operand into the uint32 array the program
+takes, and ``serve`` is the e2e that takes it.  A Dilithium row is one
+uint32 word a coefficient; a ``bn254`` row is residues over its 9 channels
+(the JAX package's form; raw integers are ingested on the host); a
+``bn254_full`` row is field elements of F_r as 8 little-endian uint32
+words, turned into residues and back into words on the device
+(``BN254Engine.e2e_words``).
 
 An engine lives on one device (CUDA unless ``device="cpu"``) and takes and
 returns tensors there.  Its transform runs every staging-pass GEMM through
@@ -33,7 +36,6 @@ import torch
 
 from repro_torch.core import field as F
 from repro_torch.core import limb_gemm as G
-from repro_torch.core import montgomery as MG
 from repro_torch.core import ntt as NTT
 from repro_torch.core import rns as R
 from repro_torch.core import zones as Z
@@ -60,13 +62,6 @@ BN254_FULL = WorkloadClass("bn254_full", precision_zone=4, data_limbs=4,
                            tw_limbs=4, n_channels=18)
 
 CLASSES = {c.name: c for c in (DILITHIUM, BN254, BN254_FULL)}
-
-# class -> the form of its served requests: "word" (one uint32 a
-# coefficient, operand (rows, d)), "residues" (operand (rows, d, channels);
-# raw integers (rows, d) are ingested on the host) or "element" (a field
-# element of ``chain.n_words`` uint32 words, operand (rows, d, n_words))
-REQUEST_FORMS = {"dilithium": "word", "bn254": "residues",
-                 "bn254_full": "element"}
 
 
 def _fold_profile(plans, reduction: str, kappa: int | None,
@@ -174,6 +169,14 @@ class DilithiumEngine:
 
     e2e = evaluate  # Dilithium op == the forward transform
 
+    def operand_shape(self, rows: int) -> tuple:
+        """A launch's operand shape: one word a coefficient."""
+        return (rows, self.d)
+
+    def launch_operand(self, a: np.ndarray) -> np.ndarray:
+        """A stacked batch's (N, d) words as the program takes them."""
+        return np.asarray(a, np.uint32)
+
     def serve(self, a, *, kernel_fn=None, fold_fn=None, planes=None):
         """The e2e of the class's served request form: ``e2e`` on words."""
         return self.e2e(a, kernel_fn=kernel_fn, fold_fn=fold_fn,
@@ -220,7 +223,6 @@ class BN254Engine:
         self.fold_profile = _fold_profile(self.plans, self.reduction, kappa,
                                           d_tile)
         self._device_planes = None
-        self.request = REQUEST_FORMS[self.wclass.name]
 
     @property
     def n_channels(self) -> int:
@@ -289,15 +291,6 @@ class BN254Engine:
         with Z.workload_zone("bn254", dev), Z.scope("bn254_ingest", dev):
             return R.words_to_rns(_operand(words, dev), self.chain)
 
-    def pack_words(self, digits: torch.Tensor) -> torch.Tensor:
-        """(N, d, nred) field digits -> (N, d, n_words) int64 words (each
-        < 2**32) of the canonical element; the digits' top word is 0.  For a
-        caller that holds digits: the served path has the reduction write
-        the words (``reduce(..., form="words")``)."""
-        dev = self.device
-        with Z.workload_zone("bn254", dev), Z.scope("bn254_pack", dev):
-            return MG.digits_to_words_u32(digits)[..., :self.chain.n_words]
-
     def e2e_words(self, words, *, kernel_fn=None, fold_fn=None, planes=None):
         """The served ``bn254_full`` op: (N, d, n_words) words of field
         elements -> (N, d, n_words) words of y mod p, every step on the
@@ -307,9 +300,25 @@ class BN254Engine:
                           fold_fn=fold_fn, planes=planes)
         return self.reduce(y, form="words")
 
+    def operand_shape(self, rows: int) -> tuple:
+        """A launch's operand shape: ``bn254_full`` takes a field element
+        as ``chain.n_words`` words, ``bn254`` its residues."""
+        if self.wclass is BN254_FULL:
+            return (rows, self.d, self.chain.n_words)
+        return (rows, self.d, self.n_channels)
+
+    def launch_operand(self, a: np.ndarray) -> np.ndarray:
+        """A stacked batch's host operand as the program takes it: words
+        or residues as they come; ``bn254`` raw integers (N, d) ingested
+        here into residues (N, d, C)."""
+        if self.wclass is BN254 and a.ndim == 2:
+            return R.to_rns_np(a.astype(object), self.chain)
+        return np.asarray(a, np.uint32)
+
     def serve(self, operand, *, kernel_fn=None, fold_fn=None, planes=None):
-        """The e2e of the class's served request form (``request``)."""
-        e2e = self.e2e_words if self.request == "element" else self.e2e
+        """The e2e of the class's served request form: ``e2e_words`` for
+        ``bn254_full``, ``e2e`` on residues for ``bn254``."""
+        e2e = self.e2e_words if self.wclass is BN254_FULL else self.e2e
         return e2e(operand, kernel_fn=kernel_fn, fold_fn=fold_fn,
                    planes=planes)
 

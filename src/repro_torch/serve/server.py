@@ -1213,9 +1213,8 @@ class CryptoServer:
         for cb in closed:
             batch = cb.batch
             eng = self.cos.engine_for(batch.workload, batch.d_bucket)
-            d_max = (eng.plan.d_max if hasattr(eng, "plan")
-                     else eng.plans[0].d_max)
-            m = packing_metrics(batch.degrees, batch.d_bucket, d_max,
+            m = packing_metrics(batch.degrees, batch.d_bucket,
+                                eng.plans[0].d_max,
                                 n_c_max=self.config.n_c_max)
             batch_metrics.append((cb, eng, m))
             acc = class_k.setdefault((batch.workload, batch.d_bucket),

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from ffbench.reference import bn254_fr_ntt as REF
+from repro_torch.core import montgomery as MG
 from repro_torch.core import rns as R
 from repro_torch.core import workloads as WK
 from repro_torch.core import zones
@@ -92,7 +93,7 @@ def test_served_rows_equal_the_reference_word_for_word(served):
 
 
 def test_stage_ops_counted_once_per_program(served):
-    """Every program has its ops by stage; ingest, reduce and pack do not
+    """Every program has its ops by stage; ingest and reduce do not
     depend on the bucket, the channels' transforms grow with its passes.
     The reduction and the words it writes are the ``rns_redc`` kernel's
     work: no ATen op of their own, one kernel call a program run."""
@@ -101,10 +102,10 @@ def test_stage_ops_counted_once_per_program(served):
     keys = [f"bn254_full/d{b}" for b in (64, 128, 512)]
     assert sorted(ops) == sorted(keys)
     for k in keys:
-        assert set(ops[k]) == {"ingest", "channels", "reduce", "pack"}
+        assert set(ops[k]) == {"ingest", "channels", "reduce"}
         assert ops[k]["ingest"] > 0 and ops[k]["channels"] > 0
-        assert ops[k]["reduce"] == ops[k]["pack"] == 0
-    for stage in ("ingest", "reduce", "pack"):
+        assert ops[k]["reduce"] == 0
+    for stage in ("ingest", "reduce"):
         assert len({ops[k][stage] for k in keys}) == 1, stage
     assert ops["bn254_full/d512"]["channels"] > ops["bn254_full/d64"]["channels"]
     progs = [p for (w, _), cache in cos._programs.items()
@@ -126,14 +127,12 @@ def test_tracer_sees_the_launches(served):
 
 def test_launch_log_names_the_served_stages(served):
     """The served e2e opens the scopes of its stages, so a validator's
-    launch log names them; the reduction writes the words, so no pack
-    stage opens."""
+    launch log names them; the reduction writes the words."""
     cos = served[0]
     eng = cos.engine_for("bn254_full", 64)
     with zones.launch_log() as log:
         eng.serve(torch.zeros((1, 64, WORDS), dtype=torch.int32))
     assert {"wzone_bn254", "bn254_ingest", "vpu_montgomery"} <= log.scopes
-    assert "bn254_pack" not in log.scopes
     assert len(log.records) == 2 * 18     # one pass: a K1 and a K2 a channel
 
 
@@ -144,13 +143,15 @@ def test_every_class_has_a_device_and_bn254_full_shares_bn254s():
 
 
 def test_other_forms_launch_at_their_old_shapes():
-    """``dilithium`` words and ``bn254`` residues (or raw integers) keep
-    their operand and result shapes; ``bn254_full`` takes and gives
-    words."""
+    """``dilithium`` words and ``bn254`` residues (or raw integers, which
+    its engine ingests) keep their operand and result shapes;
+    ``bn254_full`` takes and gives words.  Each engine gives its class's
+    shape."""
     cos = SliceCoScheduler(device="cpu")
-    assert cos.operand_shape("dilithium", 64, 8) == (8, 64)
-    assert cos.operand_shape("bn254", 64, 8) == (8, 64, 9)
-    assert cos.operand_shape("bn254_full", 64, 8) == (8, 64, WORDS)
+    for workload, shape in (("dilithium", (8, 64)), ("bn254", (8, 64, 9)),
+                            ("bn254_full", (8, 64, WORDS))):
+        assert cos.operand_shape(workload, 64, 8) == shape
+        assert cos.engine_for(workload, 64).operand_shape(8) == shape
     rng = np.random.default_rng(3)
     dil = rng.integers(0, 8380417, (8, 64), dtype=np.uint64).astype(np.uint32)
     raw = rng.integers(0, 2**31, (8, 64), dtype=np.uint64).astype(np.uint32)
@@ -170,7 +171,7 @@ def test_other_forms_launch_at_their_old_shapes():
 
 def test_words_to_rns_and_back():
     """Words of 256-bit integers become their residues in every channel,
-    and the digits of an element pack back into its words."""
+    and the digits of an element turn back into its words."""
     chain = R.make_chain(18)
     rng = np.random.default_rng(7)
     vals = [int.from_bytes(rng.bytes(32), "little") for _ in range(16)]
@@ -179,11 +180,11 @@ def test_words_to_rns_and_back():
     as_int32 = torch.from_numpy(w.numpy().astype(np.uint32).view(np.int32))
     res = R.words_to_rns(as_int32, chain)
     assert res.tolist() == [[v % m for m in chain.moduli] for v in vals]
-    eng = WK.make_engine("bn254_full", 64, device="cpu")
     digits = torch.tensor([[(v % P) >> (12 * j) & 0xFFF
                             for j in range(chain.n_red_digits)]
                            for v in vals], dtype=torch.int64)
-    assert eng.pack_words(digits).tolist() == [words_of(v % P) for v in vals]
+    words = MG.digits_to_words_u32(digits)[..., :chain.n_words]
+    assert words.tolist() == [words_of(v % P) for v in vals]
 
 
 def test_full_chain_is_exact_for_every_degree_up_to_2_19():

@@ -1,6 +1,6 @@
 """The launch slots on the card: a steady launch makes no pinned host
 allocation and constructs no CUDA event, and its rows equal those of the
-program's own path (``load``, ``replay``, ``copy_out``).  Needs a CUDA
+CPU co-scheduler on the same operands.  Needs a CUDA
 device and the kernel library's toolchain; skips without a device.  Run on
 the card with ``PYTHONPATH=src python3 -m pytest -q -m chip
 tests/test_torch_launch_slots_card.py``.  The CPU half of the slot tests, against the JAX package,
@@ -14,8 +14,7 @@ import torch
 
 from repro_torch.core import field as TF
 from repro_torch.core.scheduler import coscheduler as TCOS
-from repro_torch.core.scheduler.program import host_operand
-from repro_torch.core.scheduler.rectangular import StackedBatch, merge_operands
+from repro_torch.core.scheduler.rectangular import StackedBatch
 
 Q = TF.DILITHIUM_Q
 LAUNCHES = 1000
@@ -33,27 +32,19 @@ def test_steady_launches_allocate_no_pinned_memory_and_make_no_event(
         cuda_device, monkeypatch):
     """1,000 launches of one warm Dilithium d = 256 program of 8 rows: the
     pinned host allocator's counts do not move, no ``torch.cuda.Event`` is
-    made, the program keeps one slot, and every launch's rows equal what
-    ``copy_out``'s path returns for the same operand."""
+    made, the program keeps one slot, and every launch's rows equal the
+    CPU co-scheduler's for the same operand."""
     workload, d, n = "dilithium", 256, 8
     cos = TCOS.SliceCoScheduler(device=cuda_device)
-    shape = cos.operand_shape(workload, d, n)
-    prog = cos.program_for(workload, d, shape)
     rng = np.random.default_rng(23)
     ops = [rng.integers(0, Q, (n, d), dtype=np.uint64).astype(np.uint32)
            for _ in range(8)]
-    want = []
-    for op in ops:
-        host, view = host_operand(shape, cuda_device)
-        merge_operands([op], out=view)
-        prog.run(host)
-        out, event = prog.copy_out()
-        event.synchronize()
-        want.append(out.numpy().view(np.uint32).copy())
     batches = [StackedBatch(workload=workload, d_bucket=d, operand=op,
                             requests=[types.SimpleNamespace(tenant_id=i)
                                       for i in range(n)])
                for op in ops]
+    cpu = TCOS.SliceCoScheduler(device="cpu")
+    want = [cpu.dispatch(b).rows for b in batches]
     np.testing.assert_array_equal(cos.dispatch(batches[0]).rows, want[0])
 
     made = []

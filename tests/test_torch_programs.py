@@ -1,11 +1,14 @@
 """The co-scheduler's captured e2e programs (``repro_torch.core.scheduler.
 program``) against the JAX co-scheduler's compiled ``jitted_for`` programs.
 
-On the CPU a program runs ``eng.e2e`` eagerly on its static buffers, so
-these tests hold the program cache (keys, captures, ``precompile``), the
-static-buffer discipline (a depth-2 ring of one program), the kernel
+On the CPU a program's launch runs its slot's copies around an eager
+``eng.serve`` on its static buffers, so these tests hold the program cache
+(keys, captures, ``precompile``), the slot discipline (a depth-2 ring of one
+program, a held slot against the program's next launch), the kernel
 counters and the launch census to the JAX co-scheduler and to the engines'
-fold profiles.  Operands are seeded numpy arrays handed to both packages.
+fold profiles.  Every launch goes through the served path: a slot acquired,
+its input written with ``merge_operands``, ``launch``, ``wait``.  Operands
+are seeded numpy arrays handed to both packages.
 """
 import types
 
@@ -22,7 +25,7 @@ from repro_torch.core.scheduler import RectangularScheduler as TRect
 from repro_torch.core.scheduler import TenantRequest as TReq
 from repro_torch.core.scheduler import coscheduler as TCOS
 from repro_torch.core.scheduler import program as P
-from repro_torch.core.scheduler.rectangular import merge_operands
+from repro_torch.core.scheduler.rectangular import StackedBatch, merge_operands
 from repro_torch.kernels.limb_matmul.kernel import COUNTER as K1
 from repro_torch.kernels.mont_fold.kernel import COUNTER as K2
 from repro_torch.serve import CryptoServer, ServeConfig
@@ -64,6 +67,21 @@ def _u32(t):
     return t.numpy().view(np.uint32)
 
 
+class _Holder:
+    """What holds a launch slot (the co-scheduler's launch group)."""
+
+
+def _launch(prog, operand, holder):
+    """One launch of ``prog`` as the co-scheduler makes it: a slot held for
+    ``holder``, ``operand`` merged into its input, launched and waited on.
+    Returns the slot, still held."""
+    slot = prog.acquire(holder)
+    merge_operands([operand], out=slot.in_view)
+    prog.launch(slot)
+    slot.wait()
+    return slot
+
+
 @pytest.mark.parametrize("ladder", [None, LADDER], ids=["no-ladder", "ladder"])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_program_rows_equal_jax_jitted_for(name, ladder):
@@ -80,13 +98,12 @@ def test_program_rows_equal_jax_jitted_for(name, ladder):
         live = _operand(rng, tc, workload, d, n)
         shape = tc.operand_shape(workload, d, n)
         launched.add(shape[0])
-        host, view = P.host_operand(shape, tc.device_for(workload))
-        merge_operands([live], out=view)
-        got = _u32(tc.program_for(workload, d, shape).run(host))
+        slot = _launch(tc.program_for(workload, d, shape), live, _Holder())
         want = np.asarray(jc.jitted_for(workload, d)(
-            jnp.asarray(view.copy()), jc.device_planes_for(workload, d)))
-        np.testing.assert_array_equal(got, want)
-        assert not view[n:].any()               # ladder pad rows are zero
+            jnp.asarray(slot.in_view.copy()),
+            jc.device_planes_for(workload, d)))
+        np.testing.assert_array_equal(slot.out_view, want)
+        assert not slot.in_view[n:].any()       # ladder pad rows are zero
     assert set(tc.jitted_for(workload, d)) == {
         tc.operand_shape(workload, d, h) for h in launched}
     assert tc.trace_counts == {(workload, d): len(launched)}
@@ -165,24 +182,23 @@ def test_two_flights_of_one_program_keep_their_own_rows(order):
 
 
 def test_the_static_output_is_the_programs_own():
-    """The static output is overwritten by the program's next run; what
-    ``copy_out`` returned before it keeps the earlier rows."""
+    """The static output is overwritten by the program's next launch; a
+    held slot's output keeps its rows after that launch, made on another
+    slot.  An operand of the wrong shape is refused before it reaches a
+    slot."""
     cos = TCOS.SliceCoScheduler(device="cpu")
     a, b = _batches(2, 2)
     prog = cos.program_for("dilithium", 64, (3, 64))
-    outs = []
-    for batch in (a, b):
-        host, view = P.host_operand(prog.shape, cos.device_for("dilithium"))
-        merge_operands([batch.operand], out=view)
-        prog.run(host)
-        outs.append(prog.copy_out())
-    (host_a, event_a), (host_b, _) = outs
-    assert event_a is None
-    np.testing.assert_array_equal(_u32(host_a), _oracle(a))
-    np.testing.assert_array_equal(_u32(host_b), _oracle(b))
-    assert _u32(prog.static_out).tobytes() == _u32(host_b).tobytes()
-    with pytest.raises(ValueError, match="shape"):
-        prog.load(host_a[:2].clone())
+    holders = [_Holder(), _Holder()]
+    slot_a = _launch(prog, a.operand, holders[0])
+    slot_b = _launch(prog, b.operand, holders[1])
+    assert slot_a is not slot_b and prog.slot_grows == 1
+    assert slot_a.event is None and slot_a.graph is None  # the CPU's slots
+    np.testing.assert_array_equal(slot_a.out_view, _oracle(a))
+    np.testing.assert_array_equal(slot_b.out_view, _oracle(b))
+    assert _u32(prog.static_out).tobytes() == slot_b.out_view.tobytes()
+    with pytest.raises(ValueError, match="buffer"):
+        merge_operands([a.operand[:, :32]], out=slot_a.in_view)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -201,10 +217,10 @@ def test_counters_after_n_dispatches_equal_n_captured_counts(name):
     rng = np.random.default_rng(5)
     before = (K1.calls, K2.calls)
     n = 3
-    for _ in range(n):
-        host, view = P.host_operand(shape, cos.device_for(workload))
-        merge_operands([_operand(rng, cos, workload, d, 2)], out=view)
-        cos.program_for(workload, d, shape).run(host)
+    for i in range(n):
+        reqs = [TReq(2 * i + j, workload, d, 0.0) for j in range(2)]
+        cos.dispatch(StackedBatch(workload, d, reqs,
+                                  _operand(rng, cos, workload, d, 2)))
     assert (K1.calls - before[0], K2.calls - before[1]) == \
         (n * want[0], n * want[1])
     assert cos.trace_counts == {(workload, d): 1}
@@ -212,16 +228,23 @@ def test_counters_after_n_dispatches_equal_n_captured_counts(name):
 
 def test_a_replay_adds_the_captured_counts():
     """A replay calls no kernel wrapper; the program adds the counts its
-    capture recorded, once per replay.  (A stand-in graph whose replay does
-    nothing takes the CUDA graph's place.)"""
+    capture recorded, once per launch.  (A stand-in graph whose replay does
+    nothing, and a stand-in event, take the slot's CUDA graph and event's
+    place.)"""
     cos = TCOS.SliceCoScheduler(device="cpu")
     prog = cos.program_for("dilithium", 256, (2, 256))
-    prog.graph = types.SimpleNamespace(replay=lambda: None)
+    holder = _Holder()
+    slot = prog.acquire(holder)
+    slot.graph = types.SimpleNamespace(replay=lambda: None)
+    slot.event = types.SimpleNamespace(record=lambda stream: None,
+                                       synchronize=lambda: None)
     prog.launches = dict.fromkeys(P.COUNTERS, 0) | {"limb_matmul": 5,
                                                     "mont_fold": 7}
     before = {k: (c.calls, c.launches) for k, c in P.COUNTERS.items()}
     for _ in range(4):
-        prog.replay()
+        prog.launch(slot)
+        assert slot.pending
+        slot.wait()
     for k, c in P.COUNTERS.items():
         assert c.calls - before[k][0] == 4 * prog.calls[k]
         assert c.launches - before[k][1] == 4 * prog.launches[k]

@@ -3,7 +3,7 @@ for bit, in both forms, at the served shapes of the 18-channel chain
 ((8, d, 18) for d = 64, 128, 256, 512 and (128, 512, 18)) and at
 (8, 256, 9), with edge elements in the first rows; one launch a call; the
 kernel captured in a CUDA graph and replayed on new residues; a served
-``bn254_full`` program's reduce and pack stages empty of ATen ops and one
+``bn254_full`` program's reduce stage empty of ATen ops and one
 kernel launch a run.  Needs a CUDA device and the kernel library's
 toolchain; skips without a device.  Run on the card with
 ``PYTHONPATH=src python3 -m pytest -q -m chip
@@ -79,12 +79,12 @@ def test_kernel_in_a_captured_graph_reads_its_new_input(cuda_device):
 @pytest.mark.parametrize("d", [64, 512])
 def test_served_program_reduces_in_one_kernel(cuda_device, d):
     """A ``bn254_full`` program on the card: its reduction and its words
-    are the kernel's (no ATen op of the reduce or pack stage), one
+    are the kernel's (no ATen op of the reduce stage), one
     ``rns_redc`` launch a run."""
     cos = SliceCoScheduler(device=cuda_device)
     prog = cos.program_for("bn254_full", d,
                            cos.operand_shape("bn254_full", d, 8))
-    assert prog.stage_ops["reduce"] == prog.stage_ops["pack"] == 0
+    assert prog.stage_ops["reduce"] == 0
     assert prog.stage_ops["ingest"] > 0 and prog.stage_ops["channels"] > 0
     assert prog.launches["rns_redc"] == 1
     assert prog.calls["rns_redc"] == 1
