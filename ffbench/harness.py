@@ -8,20 +8,23 @@ entry names; its traffic in ``traffic/<name>.json``; each metric's reader in
 
 The run, in order:
 
-1. set-up: import, the CUDA context, the server built from the
-   configuration's ``serve`` settings (``ServeConfig``) on the card, the
-   kernel library (built once into the checkout's ``build/``), a warm-up
-   on the cell's own traffic from a stream of its own (``n_c`` requests of
-   every bucket, then rounds of WARMUP_ROUND_S of the loop until one
-   captures no new program), the window's requests drawn (a closed loop's
-   POOL_MARGIN times what the last warm-up round served), and the heap
-   collected, so that every window starts from the same settled heap;
-2. the window: ``--seconds`` of the cell's loop, untraced;
-3. with ``--trace 1``, a traced window: the loop goes on under
+1. set-up, which ``setup_s`` measures: import, the CUDA context, the
+   server built from the configuration's ``serve`` settings
+   (``ServeConfig``) on the card, the kernel library (built once into the
+   checkout's ``build/``), and a warm-up on the cell's own traffic from a
+   stream of its own (``n_c`` requests of every bucket, then rounds of
+   WARMUP_ROUND_S of the loop until one captures no new program), ending
+   when the device has finished the warm-up's work;
+2. the load generator's own preparation, outside every metric: the
+   window's requests drawn (a closed loop's POOL_MARGIN times what the
+   last warm-up round served) and the heap collected, so that every window
+   starts from the same settled heap;
+3. the window: ``--seconds`` of the cell's loop, untraced;
+4. with ``--trace 1``, a traced window: the loop goes on under
    torch.profiler (CPU and CUDA) for TRACE_SETTLE_S + TRACE_WINDOW_S, and
    the last TRACE_WINDOW_S are read;
-4. every outstanding request is answered (pumped, then drained);
-5. the peak device memory is read, the server freed, and every answered
+5. every outstanding request is answered (pumped, then drained);
+6. the peak device memory is read, the server freed, and every answered
    row compared with the plain reference on the card.
 """
 from __future__ import annotations
@@ -272,16 +275,19 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     server = build_server(cfg, device)
     t_server = clock()
     warm_rate = warm_up(server, cfg, traffic, seed, device)
+    if on_card:
+        torch.cuda.synchronize()
+    # Set-up ends here: what follows is the load generator's, which users
+    # of the server never wait for and which grows with the warm-up's rate.
     t_warm = clock()
     source = gen.RequestSource(cfg, seed, "window", device)
     pool = _pool_size(
         traffic, seconds + (TRACE_SETTLE_S + TRACE_WINDOW_S if trace else 0),
         warm_rate)
     source.prefetch(pool)
+    t_drawn = clock()
     loop = Loop(server, source, cfg["workload"])
     captures0 = _captures(server)
-    if on_card:
-        torch.cuda.synchronize()
     # Every run starts its window from a settled heap: the set-up's garbage
     # collected, so no full pass is already due when the window opens.
     gc.collect()
@@ -310,7 +316,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     rec = {
         "loop": traffic["loop"],
         "seconds": seconds,
-        "setup_s": t0 - t_start,
+        "setup_s": t_warm - t_start,
         "served_in_window": sum(1 for t in seen if t <= end),
         "latencies_s": [math.inf if math.isnan(t) else t - due
                         for t, due in zip(seen, loop.due)],
@@ -384,7 +390,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         "setup_parts_s": {"import": t_import - t_start,
                           "server": t_server - t_import,
                           "warm_up": t_warm - t_server,
-                          "payloads": t0 - t_warm},
+                          "payloads": t_drawn - t_warm,
+                          "collect": t0 - t_drawn},
     }
     result["checks"] = checks
     return result, rec

@@ -6,6 +6,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +32,50 @@ def test_a_cpu_run_is_correct_and_reports_its_metrics():
     assert r["attempted"] == r["checks"]["compared_rows"]["value"] > 0
     assert set(r["metrics"]) == {"ops_per_s", "setup_s"}
     assert list(r)[-1] == "checks"
+
+
+def test_setup_s_ends_with_the_warm_up_not_the_payload_draw(monkeypatch):
+    """The window's requests, drawn by the load generator after the warm-up,
+    are outside ``setup_s`` and reported beside it; the draw is the same."""
+    from ffbench import gen
+    prefetch, drawn = gen.RequestSource.prefetch, []
+
+    def slow(self, n):
+        drawn.append((self.stream, self.seed, n, harness.clock()))
+        time.sleep(0.5)
+        return prefetch(self, n)
+    monkeypatch.setattr(gen.RequestSource, "prefetch", slow)
+    t_start = harness.clock()
+    result, _ = harness.run("mldsa.closed512", SEED, SECONDS, False,
+                            device="cpu", t_start=t_start)
+    assert result["correct"] is True
+    notes = result["notes"]
+    parts = notes["setup_parts_s"]
+    setup = result["metrics"]["setup_s"]["value"]
+    assert setup == pytest.approx(
+        parts["import"] + parts["server"] + parts["warm_up"], abs=1e-3)
+    (stream, seed, n, t_sleep), = drawn
+    assert t_sleep - t_start >= setup            # the sleep came after it
+    assert parts["payloads"] >= 0.5 and parts["collect"] >= 0
+    traffic = harness.Cell("mldsa.closed512").traffic
+    assert (stream, seed) == ("window", SEED)
+    assert n == notes["payload_requests_drawn"] == harness._pool_size(
+        traffic, SECONDS, notes["warm_up_rate"])
+
+
+# requests drawn before the window, by traffic, window seconds and the last
+# warm-up round's rate: a closed loop's twice the rate's share plus one a
+# client, an open loop's schedule plus one
+POOLS = [("closed512", 40.0, 2261.0, 181_392),
+         ("closed512", 43.5, 22_956.0, 1_997_684),
+         ("poisson80_dmix", 40.0, 18_302.0, 384_001),
+         ("poisson80_mldsa", 43.5, 0.0, 452_401)]
+
+
+@pytest.mark.parametrize("traffic,seconds,rate,pool", POOLS)
+def test_the_pool_size_is_pinned(traffic, seconds, rate, pool):
+    law = json.loads((HERE / "traffic" / f"{traffic}.json").read_text())
+    assert harness._pool_size(law, seconds, rate) == pool
 
 
 @pytest.fixture
